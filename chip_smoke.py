@@ -1,0 +1,277 @@
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (each ends in torch.cuda.synchronize(); any failure raises):
+  1. device: require CUDA, print the card's name and power limit;
+  2. build the CUDA kernels from stereo_visual_slam_tpu_torch/csrc;
+  3. each kernel against its plain torch version at the main path's shapes
+     (FAST+NMS and the patch gather bit-exact, ZNCC atol 2e-5), with median
+     CUDA-event times of both and the BRIEF bit-flip rate against the CPU;
+  4. the slice: production Config(), a 64-frame synthetic world, ChunkedSlam
+     with chunk 8 on the card; not Lost, >= 90 % tracked, BA ran, and every
+     kernel launched during the run.
+The last line is {"ok": true, "device": {...}}; the line before it is the
+card's `nvidia-smi` name and power limit, before that a JSON line with the
+kernels' measurements.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+FRAMES = 64
+CHUNK = 8
+ZNCC_ATOL = 2e-5
+# the default profile's accuracy gates of the JAX benchmark (bench.py:45-49)
+DEFAULT_GATES = dict(trans=1.5, ate=2.0)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps: int = 20) -> float:
+    """Median CUDA-event time of fn() over reps launches, after a warm-up."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def stack_frames(frames, cfg):
+    H, W = cfg.padded_hw
+    imgs = np.zeros((len(frames), 2, H, W), np.uint8)
+    for i, (_, left, right) in enumerate(frames):
+        h, w = left.shape
+        imgs[i, 0, :h, :w] = left
+        imgs[i, 1, :h, :w] = right
+    return imgs
+
+
+def check_kernels(cfg, frames, dev):
+    """Phase 3: kernels against plain versions at the main path's shapes."""
+    from stereo_visual_slam_tpu_torch.models import frontend
+    from stereo_visual_slam_tpu_torch.ops import fast as fast_ops
+    from stereo_visual_slam_tpu_torch.ops import image as im_ops
+    from stereo_visual_slam_tpu_torch.ops import orb as orb_ops
+    from stereo_visual_slam_tpu_torch.ops import stereo as stereo_ops
+    from stereo_visual_slam_tpu_torch.ops.kernels import (
+        fast_kernel, patch_kernel, stereo_kernel,
+    )
+
+    fe, cam = cfg.frontend, cfg.camera
+    imgs = torch.from_numpy(stack_frames(frames[:CHUNK], cfg)).to(dev)
+    B, _, H, W = imgs.shape
+    left = imgs[:, 0].float()
+    results = {}
+
+    # K1: stacked L0 map and one coarse level
+    levels = frontend._level_geometry(cfg)
+    _, (h3, w3), (H3, W3), _ = levels[3]
+    vh, vw = cfg.image_hw
+    mats = im_ops.resize_matrices((vh, vw), (h3, w3), dev)
+    coarse = im_ops.pad_to(im_ops.resize_linear(left[:, :vh, :vw], mats), (H3, W3))
+    coarse = coarse.reshape(B * H3, W3).contiguous()
+    stacked = left.reshape(B * H, W).contiguous()
+    err = 0.0
+    for img in (stacked, coarse):
+        k = fast_kernel.fast_nms_cuda(img, fe.fast_threshold)
+        p = fast_kernel.fast_nms_plain(img, fe.fast_threshold)
+        sync()
+        if not torch.equal(k, p):
+            raise AssertionError(f"fast_nms differs from plain at {tuple(img.shape)}: "
+                                 f"{int((k != p).sum())} pixels")
+        err = max(err, float((k - p).abs().max()))
+    results["fast_nms"] = dict(
+        max_abs_err=err,
+        ms=median_ms(lambda: fast_kernel.fast_nms_cuda(stacked, fe.fast_threshold)),
+        plain_ms=median_ms(lambda: fast_kernel.fast_nms_plain(stacked, fe.fast_threshold)),
+        shape=list(stacked.shape),
+    )
+    log(f"fast_nms: bit-exact on {tuple(stacked.shape)} and {tuple(coarse.shape)}")
+
+    # K2: ~1000 L0 keypoints per frame on the blurred stacked image
+    score = fast_kernel.fast_nms_cuda(stacked, fe.fast_threshold).reshape(B, H, W)
+    _, yx = fast_ops.nms_topk(score, 1000)
+    row_off = (torch.arange(B, device=dev, dtype=torch.int32) * H)[:, None]
+    yx_st = torch.stack([yx[..., 0] + row_off, yx[..., 1]], -1).reshape(-1, 2).contiguous()
+    blurred = im_ops.box_blur(stacked, fe.blur_box)
+    pk = patch_kernel.gather_patches_cuda(blurred, yx_st, fe.patch_size, H)
+    pp = patch_kernel.gather_patches_plain(blurred, yx_st, fe.patch_size, H)
+    sync()
+    if not torch.equal(pk, pp):
+        raise AssertionError(f"gather_patches differs from plain: {int((pk != pp).sum())}")
+    # BRIEF bits from the kernel's patches on the card vs the CPU
+    M = torch.from_numpy(orb_ops.upright_matrix_bf16(fe.descriptor_bits, fe.patch_size))
+    _, signs_gpu = orb_ops.describe_patches(pk, M.to(dev))
+    _, signs_cpu = orb_ops.describe_patches(pp.cpu(), M)
+    flips = int((signs_gpu.cpu() != signs_cpu).sum())
+    results["gather_patches"] = dict(
+        max_abs_err=float((pk - pp).abs().max()),
+        ms=median_ms(lambda: patch_kernel.gather_patches_cuda(blurred, yx_st, fe.patch_size, H)),
+        plain_ms=median_ms(lambda: patch_kernel.gather_patches_plain(blurred, yx_st, fe.patch_size, H)),
+        shape=[int(yx_st.shape[0]), fe.patch_size, fe.patch_size],
+        brief_bit_flips=flips, brief_bits=int(signs_cpu.numel()),
+    )
+    log(f"gather_patches: bit-exact on {yx_st.shape[0]} keypoints; BRIEF bit flips "
+        f"card vs CPU: {flips} of {signs_cpu.numel()}")
+
+    # K3: 2048 keypoints, D = 96, on frame 0
+    _, yx0 = fast_ops.nms_topk(score[:1], fe.max_raw_keypoints)
+    yx0 = yx0[0].contiguous()
+    l0 = left[0].contiguous()
+    r0 = imgs[0, 1].float().contiguous()
+    D, P = fe.max_disparity, fe.stereo_patch
+    zk = stereo_kernel.zncc_sweep_cuda(l0, r0, yx0, patch=P, max_disparity=D)
+    zp = stereo_kernel.zncc_sweep_plain(l0, r0, yx0, patch=P, max_disparity=D)
+    sync()
+    zerr = float((zk - zp).abs().max())
+    if not zerr <= ZNCC_ATOL:
+        raise AssertionError(f"zncc_sweep max |err| {zerr} > {ZNCC_ATOL}")
+    kw = dict(fx=cam.fx, baseline=cam.baseline, max_disparity=D, patch=P,
+              min_zncc=fe.min_zncc, min_depth=fe.min_depth,
+              max_depth=fe.max_depth, reliable_depth=fe.reliable_depth)
+    valid = torch.ones(yx0.shape[0], dtype=torch.bool, device=dev)
+    a = stereo_ops.match_disparity(l0, r0, yx0, valid, use_kernel=True, **kw)
+    b = stereo_ops.match_disparity(l0, r0, yx0, valid, use_kernel=False, **kw)
+    if not (torch.equal(a.valid, b.valid) and torch.equal(a.reliable, b.reliable)):
+        raise AssertionError("match_disparity gates differ between kernel and plain")
+    results["zncc_sweep"] = dict(
+        max_abs_err=zerr,
+        ms=median_ms(lambda: stereo_kernel.zncc_sweep_cuda(l0, r0, yx0, patch=P, max_disparity=D)),
+        plain_ms=median_ms(lambda: stereo_kernel.zncc_sweep_plain(l0, r0, yx0, patch=P, max_disparity=D)),
+        shape=[int(yx0.shape[0]), D],
+    )
+    log(f"zncc_sweep: max |err| {zerr:.3g} <= {ZNCC_ATOL}; valid/reliable equal")
+    sync()
+    return results
+
+
+def run_slice(frames, world, cfg):
+    """Phase 4: the production slice on the card."""
+    from stereo_visual_slam_tpu_torch.shared import trajectory as traj
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
+
+    # warm-up on one chunk (cuBLAS/cuSOLVER handles, allocator), not counted
+    warm = ChunkedSlam(cfg, chunk=CHUNK, device="cuda")
+    warm.run(frames[:CHUNK])
+    warm.finish()
+    sync()
+
+    slam = ChunkedSlam(cfg, chunk=CHUNK, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    slam.run(frames)
+    slam.finish()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    n = len(slam.stats)
+    tracked = sum(1 for s in slam.stats if s["state"] == "tracked")
+    n_kf = sum(1 for s in slam.stats if s["keyframe"])
+    n_ba = sum(1 for s in slam.stats if s["ba_cost"] is not None)
+    fids = sorted(slam.estimates)
+    est = np.stack([slam.estimates[f] for f in fids])
+    if not np.isfinite(est).all() or est.shape[1:] != (4, 4):
+        raise AssertionError("non-finite or mis-shaped pose estimates")
+    t_err, r_err = traj.kitti_errors(est, world.poses_T_c_w[fids])
+    ate = traj.ate_rmse(est, world.poses_T_c_w[fids])
+    gates = DEFAULT_GATES
+    log(f"slice: {n} frames in {wall:.3f} s = {n / wall:.2f} frames/s; "
+        f"tracked {tracked}, keyframes {n_kf}, BA runs {n_ba}, lost {slam.lost}")
+    log(f"slice: ATE {ate:.3f} m (gate {gates['ate']}), KITTI trans {t_err:.3f} % "
+        f"(gate {gates['trans']}), rot {r_err:.4f} deg/m [for information]")
+    log(f"slice: syncs/frame {slam.syncs / n:.3f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}")
+    if slam.lost:
+        raise AssertionError("the slice went Lost")
+    if n != FRAMES or tracked < 0.9 * n:
+        raise AssertionError(f"tracked {tracked} of {n} frames")
+    if n_ba < 1:
+        raise AssertionError("BA never ran")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    from stereo_visual_slam_tpu_torch.shared import synthetic
+    from stereo_visual_slam_tpu_torch.shared import Config
+    from stereo_visual_slam_tpu_torch.ops.kernels import _build
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}")
+
+    cfg = Config()
+    t0 = time.perf_counter()
+    world = synthetic.make_world(cfg, n_frames=FRAMES, n_points=8000, seed=0)
+    frames = list(synthetic.frames(world))
+    log(f"render: {FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+
+    measured = check_kernels(cfg, frames, dev)
+    launches = run_slice(frames, world, cfg)
+
+    src = {"fast_nms": ("stereo_visual_slam_tpu_torch/csrc/fast_nms.cu",
+                        "stereo_visual_slam_tpu/ops/pallas/fast_kernel.py:96"),
+           "gather_patches": ("stereo_visual_slam_tpu_torch/csrc/patch_gather.cu",
+                              "stereo_visual_slam_tpu/ops/pallas/patch_kernel.py:82"),
+           "zncc_sweep": ("stereo_visual_slam_tpu_torch/csrc/zncc_sweep.cu",
+                          "stereo_visual_slam_tpu/ops/pallas/stereo_kernel.py:126")}
+    rows = []
+    for name, (source, replaces) in src.items():
+        m = measured[name]
+        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                         launches=launches[name], max_abs_err=m["max_abs_err"],
+                         ms=m["ms"], plain_ms=m["plain_ms"], shape=m["shape"]))
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+"""The per-keyframe BA schedule (port of ba/schedule.py, single device):
+classify passes, full BA (poses kept, landmarks not), pose-only
+refinement, with the inlier set flowing from pass to pass."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from stereo_visual_slam_tpu_torch.shared import BAConfig
+from stereo_visual_slam_tpu_torch.ba import pose_only as pose_only_mod
+from stereo_visual_slam_tpu_torch.ba import schur_lm
+
+
+class ScheduleInput(NamedTuple):
+    """The window; masks are float32 {0, 1}."""
+
+    T_c_w: torch.Tensor       # (K, 4, 4)
+    points: torch.Tensor      # (L, 3)
+    uv: torch.Tensor          # (L, K, 2)
+    obs_mask: torch.Tensor    # (L, K)
+    inlier: torch.Tensor      # (L,) current landmark is_inlier flags
+    reliable: torch.Tensor    # (L,) landmark reliable_depth_ flags
+    present: torch.Tensor     # (L,) row holds a real landmark
+    pose_mask: torch.Tensor   # (K,)
+    fixed_pose: torch.Tensor  # (K,)
+
+
+class ScheduleResult(NamedTuple):
+    T_c_w: torch.Tensor      # (K, 4, 4) optimized poses
+    inlier: torch.Tensor     # (L,) final is_inlier verdicts
+    cost_full: torch.Tensor  # () robust cost after the full BA pass
+    cost_pose: torch.Tensor  # () robust cost after pose-only
+    threshold: torch.Tensor  # () final adaptive chi2 threshold
+
+
+def make_ba_schedule(cfg: BAConfig):
+    """The schedule closed over the static BA config:
+    run(inp: ScheduleInput, K) -> ScheduleResult."""
+    common = dict(
+        huber_delta=cfg.huber_delta,
+        chi2_threshold=cfg.chi2_threshold,
+        adaptive_rounds=cfg.adaptive_rounds,
+        target_inlier_ratio=cfg.target_inlier_ratio,
+        lambda_init=cfg.lm_lambda_init,
+        lambda_up=cfg.lm_lambda_up,
+        lambda_down=cfg.lm_lambda_down,
+        rel_tol=cfg.rel_tol,
+    )
+
+    def run(inp: ScheduleInput, K: torch.Tensor) -> ScheduleResult:
+        inlier = inp.inlier * inp.present
+
+        def problem(point_mask, T):
+            return schur_lm.BAProblem(
+                T_c_w=T, points=inp.points, uv=inp.uv, obs_mask=inp.obs_mask,
+                point_mask=point_mask, pose_mask=inp.pose_mask,
+                fixed_pose=inp.fixed_pose,
+            )
+
+        def apply_verdict(inlier, participated, verdict):
+            # verdicts touch only landmarks that took part in the pass
+            return torch.where(participated > 0, inlier * verdict.to(inlier.dtype), inlier)
+
+        T = inp.T_c_w
+        for _ in range(cfg.classify_passes):
+            pm = inlier * inp.reliable
+            r = schur_lm.lm_optimize(problem(pm, T), K, iters=cfg.classify_iters, **common)
+            inlier = apply_verdict(inlier, pm, r.landmark_inlier)
+
+        pm = inlier * inp.reliable
+        res_full = schur_lm.lm_optimize(problem(pm, T), K, iters=cfg.full_iters, **common)
+        T = res_full.T_c_w
+        inlier = apply_verdict(inlier, pm, res_full.landmark_inlier)
+
+        res_po = pose_only_mod.optimize_pose_only(
+            problem(inlier, T), K, iters=cfg.pose_only_iters, **common
+        )
+        T = res_po.T_c_w
+        inlier = apply_verdict(inlier, inlier, res_po.landmark_inlier)
+        return ScheduleResult(
+            T_c_w=T, inlier=inlier > 0, cost_full=res_full.cost,
+            cost_pose=res_po.cost, threshold=res_po.chi2_threshold,
+        )
+
+    return run
