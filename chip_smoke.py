@@ -9,11 +9,20 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
      (FAST+NMS and the patch gather bit-exact, ZNCC atol 2e-5), with median
      CUDA-event times of both and the BRIEF bit-flip rate against the CPU;
   4. the slice: production Config(), a 64-frame synthetic world, ChunkedSlam
-     with chunk 8 on the card; not Lost, >= 90 % tracked, BA ran, and every
-     kernel launched during the run.
+     with chunk 8 on the card, streamed frame by frame (process/flush, the
+     CLI's default path); not Lost, >= 90 % tracked, BA ran, the
+     default-profile accuracy gates, and every kernel launched in the run;
+  5. the host-sequenced driver (VisualOdometry, lookahead 1) on the same
+     frames and Config(): the same gates, and the ZNCC kernel launched at
+     least once per frame (eager depth); frames/s and syncs/frame;
+  6. the reference-faithful configuration (steered BRIEF, the reference's
+     matcher gates and BA schedule) on ChunkedSlam over the first 24
+     frames, staged (stage/run_staged: every chunk on the card first):
+     not Lost, >= 23 tracked, BA ran, every kernel launched.
+Each path's kernel launches are counted from 0 just before it runs.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's `nvidia-smi` name and power limit, before that a JSON line with the
-kernels' measurements.
+kernels' measurements and per-path launch counts.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ import torch
 
 FRAMES = 64
 CHUNK = 8
+LOOKAHEAD = 1
+REF_FRAMES = 24
 ZNCC_ATOL = 2e-5
 # the default profile's accuracy gates of the JAX benchmark (bench.py:45-49)
 DEFAULT_GATES = dict(trans=1.5, ate=2.0)
@@ -129,20 +140,24 @@ def check_kernels(cfg, frames, dev):
     sync()
     if not torch.equal(pk, pp):
         raise AssertionError(f"gather_patches differs from plain: {int((pk != pp).sum())}")
-    # BRIEF bits from the kernel's patches on the card vs the CPU
-    M = torch.from_numpy(orb_ops.upright_matrix_bf16(fe.descriptor_bits, fe.patch_size))
-    _, signs_gpu = orb_ops.describe_patches(pk, M.to(dev))
-    _, signs_cpu = orb_ops.describe_patches(pp.cpu(), M)
-    flips = int((signs_gpu.cpu() != signs_cpu).sum())
+    # BRIEF bits, upright and steered, from the kernel's patches on the
+    # card vs the same patches on the CPU
+    flips = {}
+    for steer in (False, True):
+        M = torch.from_numpy(orb_ops.brief_matrix_bf16(fe.descriptor_bits, fe.patch_size, steer))
+        _, signs_gpu = orb_ops.describe_patches(pk, M.to(dev), steer)
+        _, signs_cpu = orb_ops.describe_patches(pk.cpu(), M, steer)
+        flips[steer] = int((signs_gpu.cpu() != signs_cpu).sum())
     results["gather_patches"] = dict(
         max_abs_err=float((pk - pp).abs().max()),
         ms=median_ms(lambda: patch_kernel.gather_patches_cuda(blurred, yx_st, fe.patch_size, H)),
         plain_ms=median_ms(lambda: patch_kernel.gather_patches_plain(blurred, yx_st, fe.patch_size, H)),
         shape=[int(yx_st.shape[0]), fe.patch_size, fe.patch_size],
-        brief_bit_flips=flips, brief_bits=int(signs_cpu.numel()),
+        brief_bit_flips=flips[False], steered_bit_flips=flips[True],
+        brief_bits=int(signs_cpu.numel()),
     )
     log(f"gather_patches: bit-exact on {yx_st.shape[0]} keypoints; BRIEF bit flips "
-        f"card vs CPU: {flips} of {signs_cpu.numel()}")
+        f"card vs CPU: upright {flips[False]}, steered {flips[True]} of {signs_cpu.numel()}")
 
     # K3: 2048 keypoints, D = 96, on frame 0
     _, yx0 = fast_ops.nms_topk(score[:1], fe.max_raw_keypoints)
@@ -175,15 +190,36 @@ def check_kernels(cfg, frames, dev):
     return results
 
 
+def accuracy(estimates, world, label):
+    """(ATE m, KITTI trans %) of the estimates against the world's poses,
+    after checking they are finite 4x4 poses."""
+    from stereo_visual_slam_tpu_torch.shared import trajectory as traj
+
+    fids = sorted(estimates)
+    est = np.stack([estimates[f] for f in fids])
+    if not np.isfinite(est).all() or est.shape[1:] != (4, 4):
+        raise AssertionError(f"{label}: non-finite or mis-shaped pose estimates")
+    t_err, r_err = traj.kitti_errors(est, world.poses_T_c_w[fids])
+    ate = traj.ate_rmse(est, world.poses_T_c_w[fids])
+    log(f"{label}: ATE {ate:.3f} m (gate {DEFAULT_GATES['ate']}), KITTI trans "
+        f"{t_err:.3f} % (gate {DEFAULT_GATES['trans']}), rot {r_err:.4f} deg/m [for information]")
+    return ate, t_err
+
+
+def check_launches(launches, label):
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
+
+
 def run_slice(frames, world, cfg):
     """Phase 4: the production slice on the card."""
-    from stereo_visual_slam_tpu_torch.shared import trajectory as traj
     from stereo_visual_slam_tpu_torch.ops import kernels
     from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
 
     # warm-up on one chunk (cuBLAS/cuSOLVER handles, allocator), not counted
     warm = ChunkedSlam(cfg, chunk=CHUNK, device="cuda")
-    warm.run(frames[:CHUNK])
+    warm.run(frames[:CHUNK], stage=False)
     warm.finish()
     sync()
 
@@ -192,7 +228,7 @@ def run_slice(frames, world, cfg):
     kernels.reset_launch_counts()
     sync()
     t0 = time.perf_counter()
-    slam.run(frames)
+    slam.run(frames, stage=False)   # streamed, as run_vslam's default
     slam.finish()
     sync()
     wall = time.perf_counter() - t0
@@ -202,17 +238,9 @@ def run_slice(frames, world, cfg):
     tracked = sum(1 for s in slam.stats if s["state"] == "tracked")
     n_kf = sum(1 for s in slam.stats if s["keyframe"])
     n_ba = sum(1 for s in slam.stats if s["ba_cost"] is not None)
-    fids = sorted(slam.estimates)
-    est = np.stack([slam.estimates[f] for f in fids])
-    if not np.isfinite(est).all() or est.shape[1:] != (4, 4):
-        raise AssertionError("non-finite or mis-shaped pose estimates")
-    t_err, r_err = traj.kitti_errors(est, world.poses_T_c_w[fids])
-    ate = traj.ate_rmse(est, world.poses_T_c_w[fids])
-    gates = DEFAULT_GATES
     log(f"slice: {n} frames in {wall:.3f} s = {n / wall:.2f} frames/s; "
         f"tracked {tracked}, keyframes {n_kf}, BA runs {n_ba}, lost {slam.lost}")
-    log(f"slice: ATE {ate:.3f} m (gate {gates['ate']}), KITTI trans {t_err:.3f} % "
-        f"(gate {gates['trans']}), rot {r_err:.4f} deg/m [for information]")
+    ate, t_err = accuracy(slam.estimates, world, "slice")
     log(f"slice: syncs/frame {slam.syncs / n:.3f}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}")
     if slam.lost:
@@ -221,9 +249,104 @@ def run_slice(frames, world, cfg):
         raise AssertionError(f"tracked {tracked} of {n} frames")
     if n_ba < 1:
         raise AssertionError("BA never ran")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    if ate > DEFAULT_GATES["ate"] or t_err > DEFAULT_GATES["trans"]:
+        raise AssertionError("the slice misses the accuracy gates")
+    check_launches(launches, "slice")
+    return launches
+
+
+def run_host(frames, world, cfg):
+    """Phase 5: the host-sequenced driver on the card."""
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.pipeline.vo import VisualOdometry
+
+    warm = VisualOdometry(cfg, lookahead=LOOKAHEAD, device="cuda")
+    for f, left, right in frames[:CHUNK]:
+        warm.process(f, left, right)
+    warm.finish()
+    sync()
+
+    vo = VisualOdometry(cfg, lookahead=LOOKAHEAD, device="cuda")
+    kernels.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    for f, left, right in frames:
+        vo.process(f, left, right)
+    vo.finish()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    recs = [s for s in vo.stats if s["state"] != "pending"]
+    n = len(recs)
+    tracked = sum(1 for s in recs if s["state"] in ("init", "tracked"))
+    n_kf = sum(1 for s in recs if s.get("keyframe"))
+    n_ba = sum(1 for s in recs if "ba_cost" in s or s.get("ba_dispatched"))
+    lost = vo.state.name == "LOST"
+    log(f"host: {n} frames in {wall:.3f} s = {n / wall:.2f} frames/s (lookahead "
+        f"{LOOKAHEAD}); tracked {tracked}, keyframes {n_kf}, BA runs {n_ba}, lost {lost}")
+    ate, t_err = accuracy(vo.estimates, world, "host")
+    log(f"host: syncs/frame {vo.syncs / n:.3f}; ZNCC launches/frame "
+        f"{launches['zncc_sweep'] / n:.3f}; launches {launches}")
+    if lost:
+        raise AssertionError("the host driver went Lost")
+    if n != FRAMES or tracked < 0.9 * n:
+        raise AssertionError(f"host: tracked {tracked} of {n} frames")
+    if n_ba < 1:
+        raise AssertionError("host: BA never ran")
+    if ate > DEFAULT_GATES["ate"] or t_err > DEFAULT_GATES["trans"]:
+        raise AssertionError("host: misses the accuracy gates")
+    check_launches(launches, "host")
+    if launches["zncc_sweep"] < n:
+        raise AssertionError(f"host: ZNCC launched {launches['zncc_sweep']} times for {n} frames")
+    return launches, dict(frames_per_s=n / wall, syncs_per_frame=vo.syncs / n)
+
+
+def reference_faithful(cfg):
+    """The reference's published constants: steered rBRIEF, base gate 30, no
+    search-radius gate, no margin, the 2x5/10/10 BA schedule, no gauge
+    anchor (tests/test_reference_config.py)."""
+    import dataclasses
+
+    from stereo_visual_slam_tpu_torch.shared import reference_ba_schedule
+
+    return cfg.replace(
+        frontend=dataclasses.replace(cfg.frontend, steer_descriptor=True),
+        matcher=dataclasses.replace(cfg.matcher, base_gate=30.0, margin=0.0, search_radius=1e6),
+        ba=dataclasses.replace(reference_ba_schedule(cfg.ba), fix_oldest_pose=False),
+    )
+
+
+def run_reference(frames, world, cfg):
+    """Phase 6: the reference-faithful configuration on ChunkedSlam."""
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
+
+    cfg_ref = reference_faithful(cfg)
+    slam = ChunkedSlam(cfg_ref, chunk=CHUNK, device="cuda")
+    kernels.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    slam.run(frames[:REF_FRAMES])   # staged: every chunk uploaded first
+    slam.finish()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    n = len(slam.stats)
+    tracked = sum(1 for s in slam.stats if s["state"] == "tracked")
+    n_kf = sum(1 for s in slam.stats if s["keyframe"])
+    n_ba = sum(1 for s in slam.stats if s["ba_cost"] is not None)
+    log(f"reference config: {n} frames in {wall:.3f} s (staged); tracked {tracked}, "
+        f"keyframes {n_kf}, BA runs {n_ba}, lost {slam.lost}; syncs/frame "
+        f"{slam.syncs / n:.3f}; launches {launches}")
+    accuracy(slam.estimates, world, "reference config")
+    if slam.lost:
+        raise AssertionError("the reference-faithful config went Lost")
+    if n != REF_FRAMES or tracked < n - 1:
+        raise AssertionError(f"reference config: tracked {tracked} of {n} frames")
+    if n_ba < 1:
+        raise AssertionError("reference config: BA never ran")
+    check_launches(launches, "reference config")
     return launches
 
 
@@ -251,7 +374,9 @@ def main() -> int:
     log(f"render: {FRAMES} frames in {time.perf_counter() - t0:.1f} s")
 
     measured = check_kernels(cfg, frames, dev)
-    launches = run_slice(frames, world, cfg)
+    launches = {"chunked": run_slice(frames, world, cfg)}
+    launches["host"], host_rates = run_host(frames, world, cfg)
+    launches["reference_config"] = run_reference(frames, world, cfg)
 
     src = {"fast_nms": ("stereo_visual_slam_tpu_torch/csrc/fast_nms.cu",
                         "stereo_visual_slam_tpu/ops/pallas/fast_kernel.py:96"),
@@ -263,9 +388,13 @@ def main() -> int:
     for name, (source, replaces) in src.items():
         m = measured[name]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=launches[name], max_abs_err=m["max_abs_err"],
+                         launches=launches["chunked"][name],
+                         launches_by_path={p: c[name] for p, c in launches.items()},
+                         max_abs_err=m["max_abs_err"],
                          ms=m["ms"], plain_ms=m["plain_ms"], shape=m["shape"]))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "host_driver": host_rates,
+                      "steered_bit_flips": [measured["gather_patches"]["steered_bit_flips"],
+                                            measured["gather_patches"]["brief_bits"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,26 @@
-"""Batched feature extraction and the lazy stereo depth stage (port of
-models/frontend.py: `make_batch_extractor(with_depth=False)` and
-`make_depth_stage`).
+"""Feature extraction and stereo depth (port of models/frontend.py:
+`make_extractor`, `make_batch_extractor` and `make_depth_stage`).
 
 Per pyramid level the B frames are stacked vertically into one (B*H_i, W_i)
 image for FAST+NMS, box blur and the patch gather (clamped per frame), as
-in the reference; the pooled top-k, BRIEF and ANMS run batched. Depth is
-not computed here: the SLAM core computes it lazily in the keyframe branch
-with `make_depth_stage` (the production `lazy_depth=True` path, whose
-values equal the eager ones).
+in the reference; the pooled top-k, BRIEF and ANMS run batched. Depth comes
+in one of two ways, as in the reference:
+  * eagerly (`with_depth=True`): one ZNCC sweep over all B*N keypoints on
+    the stacked full-resolution pair, the `frontend.lazy_depth=False`
+    chunk path and the single-frame extractor of the host driver;
+  * lazily (`with_depth=False` + `make_depth_stage`): the production chunk
+    path computes it in the keyframe branch only; its values equal the
+    eager ones.
+The single-frame `make_extractor` is the batched one at B=1, which the
+reference holds bit-identical to its own single-frame program.
 
 The `pallas_fast` / `pallas_patches` / `pallas_stereo` config flags keep
 their JAX meaning, "use the kernel": with a flag on, the op goes through the
 kernel's wrapper (plain torch on CPU tensors, the CUDA kernel on CUDA
-tensors); with it off, the plain version runs on any device.
+tensors); with it off, the plain version runs on any device. The patch
+gather serves steered BRIEF too: the reason the reference keeps its kernel
+off there (frontend.py:86-93) is the bf16 rounding of its one-hot gather,
+which `orb.describe_patches` reproduces.
 """
 
 from __future__ import annotations
@@ -71,18 +79,39 @@ def _level_geometry(config: Config):
     return out
 
 
-def make_batch_extractor(config: Config, device):
-    """Build batch_extract(images (B, 2, H, W) uint8 on `device`) ->
-    FrameFeatures with a leading B axis and zeroed depth fields."""
+def _depth_fields(config: Config, left, right, yx_int, yx_f, valid) -> dict:
+    """The five FrameFeatures depth fields of keypoints yx_int (N, 2) on the
+    (H, W) pair; yx_f (N, 2) are their float coords for back-projection."""
+    fe = config.frontend
+    cam = config.camera
+    st = stereo_ops.match_disparity(
+        left, right, yx_int, valid,
+        fx=cam.fx, baseline=cam.baseline, max_disparity=fe.max_disparity,
+        patch=fe.stereo_patch, min_zncc=fe.min_zncc,
+        min_depth=fe.min_depth, max_depth=fe.max_depth,
+        reliable_depth=fe.reliable_depth, use_kernel=fe.pallas_stereo,
+    )
+    pts_cam = stereo_ops.backproject(
+        yx_f, st.depth, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy
+    )
+    return dict(
+        disparity=st.disparity, depth=st.depth, depth_valid=st.valid,
+        reliable=st.reliable, pts_cam=pts_cam,
+    )
+
+
+def make_batch_extractor(config: Config, device, with_depth: bool = True):
+    """Build batch_extract(images (B, 2, H, W) uint8 or f32 on `device`) ->
+    FrameFeatures with a leading B axis. `with_depth=False` zeroes the
+    depth fields (the lazy-depth chunk path)."""
     fe = config.frontend
     vh, vw = config.image_hw
     levels = _level_geometry(config)
     border = fe.border_margin
     device = torch.device(device)
-    if fe.steer_descriptor:
-        raise NotImplementedError("only upright BRIEF (steer_descriptor=False) is ported")
+    steer = fe.steer_descriptor
     M = torch.from_numpy(
-        orb_ops.upright_matrix_bf16(fe.descriptor_bits, fe.patch_size)
+        orb_ops.brief_matrix_bf16(fe.descriptor_bits, fe.patch_size, steer)
     ).to(device)
     # resize weights per level, built once host-side (ops/image.resize_weights)
     resize = [
@@ -129,7 +158,7 @@ def make_batch_extractor(config: Config, device):
             row_off = (torch.arange(B, device=device, dtype=torch.int32) * H_i)[:, None]
             yx_st = torch.stack([yx_i[..., 0] + row_off, yx_i[..., 1]], dim=-1)
             patches = gather(blurred, yx_st.reshape(B * budget, 2).contiguous(), H_i)
-            packed_i, signs_i = orb_ops.describe_patches(patches, M)
+            packed_i, signs_i = orb_ops.describe_patches(patches, M, steer)
 
             yx_full = yx_i.float() * s
             yx_parts.append(torch.round(yx_full).to(torch.int32))
@@ -140,49 +169,64 @@ def make_batch_extractor(config: Config, device):
             signs_parts.append(signs_i.reshape(B, budget, -1))
 
         yx_int = torch.cat(yx_parts, dim=1)
+        yx_f = torch.cat(yxf_parts, dim=1)
         score = torch.cat(score_parts, dim=1)
         valid = (score > 0.0) & (yx_int[..., 0] < vh) & (yx_int[..., 1] < vw)
         spawn_mask = anms_ops.anms_mask(
             yx_int, score, num=fe.n_features, robust_coeff=fe.anms_robust_coeff
         )
         N = yx_int.shape[1]
-        zero = torch.zeros((B, N), dtype=torch.float32, device=device)
-        no = torch.zeros((B, N), dtype=torch.bool, device=device)
+        if with_depth:
+            # one sweep over all frames' keypoints on the stacked full-res
+            # pair; frame b's rows are offset by b * H0
+            H0, W0 = left.shape[1:]
+            row_off = (torch.arange(B, device=device, dtype=torch.int32) * H0)[:, None]
+            yx_st = torch.stack([yx_int[..., 0] + row_off, yx_int[..., 1]], dim=-1)
+            depth = _depth_fields(
+                config, left.reshape(B * H0, W0),
+                images[:, 1].float().reshape(B * H0, W0),
+                yx_st.reshape(B * N, 2).contiguous(), yx_f.reshape(B * N, 2),
+                valid.reshape(B * N),
+            )
+            depth = {k: v.reshape(B, N, *v.shape[1:]) for k, v in depth.items()}
+        else:
+            zero = torch.zeros((B, N), dtype=torch.float32, device=device)
+            no = torch.zeros((B, N), dtype=torch.bool, device=device)
+            depth = dict(
+                disparity=zero, depth=zero, depth_valid=no, reliable=no,
+                pts_cam=torch.zeros((B, N, 3), dtype=torch.float32, device=device),
+            )
         return FrameFeatures(
-            yx=torch.cat(yxf_parts, dim=1), score=score,
-            scale=torch.cat(scale_parts, dim=1), valid=valid,
-            spawn_mask=spawn_mask, signs=torch.cat(signs_parts, dim=1),
-            packed=torch.cat(packed_parts, dim=1),
-            disparity=zero, depth=zero, depth_valid=no, reliable=no,
-            pts_cam=torch.zeros((B, N, 3), dtype=torch.float32, device=device),
+            yx=yx_f, score=score, scale=torch.cat(scale_parts, dim=1),
+            valid=valid, spawn_mask=spawn_mask,
+            signs=torch.cat(signs_parts, dim=1),
+            packed=torch.cat(packed_parts, dim=1), **depth,
         )
 
     return batch_extract
 
 
+def make_extractor(config: Config, device):
+    """Build extract(images (2, H, W) uint8 or f32 on `device`) ->
+    FrameFeatures of one frame, depth included: the batched extractor at
+    B=1, so the ZNCC sweep runs once per frame on the merged N-row table."""
+    batch_extract = make_batch_extractor(config, device, with_depth=True)
+
+    def extract(images: torch.Tensor) -> FrameFeatures:
+        return FrameFeatures(*[f[0] for f in batch_extract(images[None])])
+
+    return extract
+
+
 def make_depth_stage(config: Config):
     """depth_stage(image (2, H, W), feats of one frame) -> dict of the five
     FrameFeatures depth fields, from the keypoints' rounded coords."""
-    fe = config.frontend
-    cam = config.camera
 
     def depth_stage(image: torch.Tensor, feats: FrameFeatures) -> dict:
-        left = image[0].float().contiguous()
-        right = image[1].float().contiguous()
         yx_int = torch.round(feats.yx).to(torch.int32).contiguous()
-        st = stereo_ops.match_disparity(
-            left, right, yx_int, feats.valid,
-            fx=cam.fx, baseline=cam.baseline, max_disparity=fe.max_disparity,
-            patch=fe.stereo_patch, min_zncc=fe.min_zncc,
-            min_depth=fe.min_depth, max_depth=fe.max_depth,
-            reliable_depth=fe.reliable_depth, use_kernel=fe.pallas_stereo,
-        )
-        pts_cam = stereo_ops.backproject(
-            feats.yx, st.depth, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy
-        )
-        return dict(
-            disparity=st.disparity, depth=st.depth, depth_valid=st.valid,
-            reliable=st.reliable, pts_cam=pts_cam,
+        return _depth_fields(
+            config, image[0].float().contiguous(), image[1].float().contiguous(),
+            yx_int, feats.yx, feats.valid,
         )
 
     return depth_stage

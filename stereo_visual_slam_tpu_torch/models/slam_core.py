@@ -149,11 +149,6 @@ def _set_rows(arr: torch.Tensor, rows: torch.Tensor, vals, col: Optional[int] = 
     return ext[:-1]
 
 
-def _select(flag: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:
-    """Field-wise torch.where(flag, a, b) over two NamedTuples of tensors."""
-    return type(a)(*[torch.where(flag, x, y) for x, y in zip(a, b)])
-
-
 class ChunkStep:
     """The production chunk program: batched extraction, then the B frames
     in order with the state on the device.
@@ -168,9 +163,14 @@ class ChunkStep:
         self.config = config
         self.device = torch.device(device)
         self.syncs = 0
-        self.extract = frontend_mod.make_batch_extractor(config, self.device)
-        self.depth_fn = frontend_mod.make_depth_stage(config)
-        self.track_step = vslam.make_tracker(config, self.device)
+        # lazy stereo (the production default): depth in the keyframe branch
+        # only; with frontend.lazy_depth=False the extractor computes it
+        lazy = config.frontend.lazy_depth
+        self.extract = frontend_mod.make_batch_extractor(
+            config, self.device, with_depth=not lazy
+        )
+        self.depth_fn = frontend_mod.make_depth_stage(config) if lazy else None
+        self.track_step, _ = vslam.make_tracker(config, self.device)
         self.run_schedule = ba_schedule.make_ba_schedule(config.ba)
         self.K = vslam.camera_matrix(config, self.device)
         Kw = config.keyframe.window_size
@@ -317,7 +317,7 @@ class ChunkStep:
             lm_id=torch.full((N,), -1, dtype=torch.int32, device=dev),
             T_c_w=self._eye4, T_c_l=self._eye4,
         )
-        base = _select(is_first, first_state, tracked_state)
+        base = vslam.select(is_first, first_state, tracked_state)
 
         # the host branch: one fetch per frame
         branch, kf_count = self.fetch(is_kf & ~carry.lost, mstate.kf_count)
@@ -325,9 +325,10 @@ class ChunkStep:
         if branch:
             # is_kf implies ok, so this frame is accepted: the map needs no
             # select against the previous one
-            feats_kf = feats._replace(**self.depth_fn(image, feats))
+            if self.depth_fn is not None:
+                feats = feats._replace(**self.depth_fn(image, feats))
             new_t, new_m, n_new, evict = self.insert_keyframe(
-                base, mstate, feats_kf, frame_id, kf_count
+                base, mstate, feats, frame_id, kf_count
             )
             ba_ran = cfg.ba.enable_ba and min(kf_count + 1, Kw) >= Kw
             ba_cost = zero_f
@@ -341,7 +342,7 @@ class ChunkStep:
 
         # rejection keeps the previous tracking state (the gap gates grow)
         accept = ok & ~carry.lost
-        new_t = _select(accept, new_t, tstate)
+        new_t = vslam.select(accept, new_t, tstate)
         num_lost = torch.where(accept, 0, carry.num_lost + 1).to(torch.int32)
         lost = carry.lost | (num_lost > kc.max_lost)
         record = FrameRecord(

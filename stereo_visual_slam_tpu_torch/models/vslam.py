@@ -1,6 +1,10 @@
-"""The per-frame tracking step (port of models/vslam.py: `TrackState`,
-`TrackInfo`, `empty_state`, `track_step`): motion-predicted Hamming matching
-against the previous frame, landmark inheritance and PnP-RANSAC."""
+"""The per-frame tracking step (port of models/vslam.py): motion-predicted
+Hamming matching against the previous frame, landmark inheritance and
+PnP-RANSAC (`track_step`); landmark spawning and depth upgrades at a
+keyframe (`keyframe_update`); and `make_full_step`, the host driver's whole
+frame (extraction, tracking, the motion-sanity and keyframe rules, the
+keyframe update) as branchless tensor code, so its accept / keyframe
+decisions are the reference's."""
 
 from __future__ import annotations
 
@@ -24,6 +28,20 @@ class TrackState(NamedTuple):
     lm_reliable: torch.Tensor  # (N,) bool landmark has reliable depth
     T_c_w: torch.Tensor        # (4, 4) pose of this frame
     T_c_l: torch.Tensor        # (4, 4) last relative motion (velocity prior)
+
+
+class StepInfo(NamedTuple):
+    """What the host needs from one full frame step."""
+
+    n_matches: torch.Tensor
+    n_inliers: torch.Tensor
+    twist_norm: torch.Tensor
+    angle_y: torch.Tensor
+    T_c_l: torch.Tensor
+    ok: torch.Tensor           # () bool motion sanity verdict
+    is_keyframe: torch.Tensor  # () bool
+    n_new: torch.Tensor        # () int32 landmarks spawned (0 if not keyframe)
+    T_c_w: torch.Tensor        # (4, 4) this frame's estimated pose
 
 
 class TrackInfo(NamedTuple):
@@ -58,9 +76,18 @@ def empty_state(config: Config, device) -> TrackState:
     )
 
 
+def select(flag: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:
+    """Field-wise torch.where(flag, a, b) over two NamedTuples of tensors."""
+    return type(a)(*[torch.where(flag, x, y) for x, y in zip(a, b)])
+
+
 def make_tracker(config: Config, device):
-    """track_step(curr, prev, T_init, frame_gap, gumbel, twist_noise)
-    -> (TrackState, TrackInfo), closed over the config."""
+    """(track_step, keyframe_update), closed over the config:
+
+        track_step(curr, prev, T_init, frame_gap, gumbel, twist_noise)
+            -> (TrackState, TrackInfo)
+        keyframe_update(state, curr, next_lm_id) -> (TrackState, n_new, upgrade)
+    """
     mc, pc = config.matcher, config.pnp
     K = camera_matrix(config, device)
 
@@ -114,4 +141,63 @@ def make_tracker(config: Config, device):
         )
         return new_state, info
 
-    return track_step
+    def keyframe_update(state: TrackState, curr: FrameFeatures, next_lm_id: int):
+        """Spawn landmarks (ids next_lm_id, next_lm_id + 1, ...) for untracked
+        ANMS picks with valid depth and upgrade tracked landmarks whose depth
+        just became reliable (VO::insert_key_frame,
+        visual_odometry.cpp:348-432)."""
+        T_w_c = se3.inverse(state.T_c_w)
+        pts_w_new = se3.act(T_w_c, curr.pts_cam)
+        upgrade = state.valid & ~state.lm_reliable & curr.reliable
+        lm_pos = torch.where(upgrade[:, None], pts_w_new, state.lm_pos)
+        lm_rel = state.lm_reliable | upgrade
+        new = ~state.valid & curr.valid & curr.spawn_mask & curr.depth_valid
+        new_ids = next_lm_id + torch.cumsum(new.to(torch.int32), dim=0) - 1
+        out = state._replace(
+            valid=state.valid | new,
+            lm_id=torch.where(new, new_ids, state.lm_id).to(torch.int32),
+            lm_pos=torch.where(new[:, None], pts_w_new, lm_pos),
+            lm_reliable=torch.where(new, curr.reliable, lm_rel),
+        )
+        return out, new.sum(dtype=torch.int32), upgrade
+
+    return track_step, keyframe_update
+
+
+def make_full_step(config: Config, extract, device):
+    """The host driver's frame as one function (vslam.py:222-299):
+
+        full_step(images (2, H, W), prev, frame_gap () f32, gumbel,
+                  twist_noise, next_lm_id) -> (TrackState, StepInfo, upgrade)
+
+    ok    = inliers >= min_inliers and ||log(T_c_l)|| <= max_twist * gap
+    is_kf = ok and not (inliers >= min_inliers_skip and |yaw| < max_yaw_skip)
+    The keyframe update runs on every frame and its result is selected, so
+    nothing here waits for the host."""
+    track_step, keyframe_update = make_tracker(config, device)
+    pc, kc = config.pnp, config.keyframe
+
+    def full_step(images, prev: TrackState, frame_gap, gumbel, twist_noise,
+                  next_lm_id: int):
+        # constant-velocity prior from the state's own last motion, scaled
+        # by the frame gap
+        T_init = se3.compose(se3.exp(frame_gap * se3.log(prev.T_c_l)), prev.T_c_w)
+        feats = extract(images)
+        tracked, tinfo = track_step(feats, prev, T_init, frame_gap, gumbel, twist_noise)
+        ok = (tinfo.n_inliers >= pc.min_inliers) & (
+            tinfo.twist_norm <= pc.max_twist * frame_gap
+        )
+        is_kf = ok & ~((tinfo.n_inliers >= kc.min_inliers_skip)
+                       & (tinfo.angle_y < kc.max_yaw_skip))
+        kf_state, n_new, upgrade = keyframe_update(tracked, feats, next_lm_id)
+        state = select(ok, select(is_kf, kf_state, tracked), prev)
+        info = StepInfo(
+            n_matches=tinfo.n_matches, n_inliers=tinfo.n_inliers,
+            twist_norm=tinfo.twist_norm, angle_y=tinfo.angle_y,
+            T_c_l=tinfo.T_c_l, ok=ok, is_keyframe=is_kf,
+            n_new=torch.where(is_kf, n_new, 0).to(torch.int32),
+            T_c_w=state.T_c_w,
+        )
+        return state, info, upgrade
+
+    return full_step

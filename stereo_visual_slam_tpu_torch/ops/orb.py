@@ -1,9 +1,15 @@
-"""Upright BRIEF description (port of ops/orb.py, production path only).
+"""BRIEF description, upright and orientation-steered (port of ops/orb.py).
 
-The steered path and `orientations` are not ported: the production config
-describes upright (`steer_descriptor=False`). `brief_pattern` and
-`_steering_matrix` are numpy and copied verbatim from the JAX module (which
-imports jax), so both packages build the same constant.
+`brief_pattern`, `_centroid_weights` and `_steering_matrix` are numpy and
+copied verbatim from the JAX module (which imports jax), so both packages
+build the same constants.
+
+Steering: the intensity-centroid angle of each patch picks one of 30
+12-degree bins, and the bits come from that bin's columns of the steering
+matrix. The reference's XLA gather rounds the patches to bf16 before the
+centroid moments; the port's gather (and K2) gives exact f32 values, so
+`describe_patches` rounds them to bf16 before the moments too, or the
+angle bins would differ on blurred images.
 """
 
 from __future__ import annotations
@@ -59,11 +65,32 @@ def _steering_matrix(bits: int, patch: int) -> np.ndarray:
 
 
 @functools.lru_cache()
-def upright_matrix_bf16(bits: int, patch: int) -> np.ndarray:
-    """Bin-0 columns of the steering matrix rounded to bf16 and widened back
-    to float32 — the operand the reference's upright BRIEF matmul uses."""
-    M = torch.from_numpy(np.ascontiguousarray(_steering_matrix(bits, patch)[:, :bits]))
+def _centroid_weights(patch: int, radius: int) -> np.ndarray:
+    """Circular-mask y/x moment weight maps, flattened (patch^2, 2)."""
+    r = patch // 2
+    ys, xs = np.mgrid[-r: r + 1, -r: r + 1]
+    mask = (ys * ys + xs * xs) <= radius * radius
+    wy = (ys * mask).astype(np.float32).reshape(-1)
+    wx = (xs * mask).astype(np.float32).reshape(-1)
+    return np.stack([wy, wx], axis=-1)
+
+
+@functools.lru_cache()
+def brief_matrix_bf16(bits: int, patch: int, steer: bool) -> np.ndarray:
+    """The steering matrix (all 30 bins when `steer`, else the bin-0
+    columns) rounded to bf16 and widened back to float32 — the operand of
+    the reference's BRIEF matmul."""
+    M = _steering_matrix(bits, patch)
+    M = torch.from_numpy(np.ascontiguousarray(M if steer else M[:, :bits]))
     return M.to(torch.bfloat16).float().numpy()
+
+
+def orientations(patches: torch.Tensor, radius: int = 15) -> torch.Tensor:
+    """Intensity-centroid angle per patch: (N, P, P) -> (N,) radians."""
+    P = patches.shape[-1]
+    Wm = torch.from_numpy(_centroid_weights(P, radius)).to(patches.device)
+    m = patches.reshape(patches.shape[0], -1) @ Wm     # (N, 2) = (m01, m10)
+    return torch.atan2(m[:, 0], m[:, 1])
 
 
 def pack_bits(bits_bool: torch.Tensor) -> torch.Tensor:
@@ -75,17 +102,27 @@ def pack_bits(bits_bool: torch.Tensor) -> torch.Tensor:
     return torch.sum(w << shifts, dim=-1)
 
 
-def describe_patches(patches: torch.Tensor, M: torch.Tensor):
-    """Upright BRIEF of pre-gathered (N, P, P) patches.
+def describe_patches(patches: torch.Tensor, M: torch.Tensor, steer: bool = False):
+    """BRIEF of pre-gathered (N, P, P) patches, steered when `steer`.
 
-    M is `upright_matrix_bf16` on the patches' device. The reference's
-    product is bf16 x bf16 with f32 accumulation (orb.py:191-195): both
-    operands are rounded to bf16 here and multiplied as fp32 (TF32 off), so
-    every product is exact and only the f32 summation order can differ.
+    M is `brief_matrix_bf16(bits, P, steer)` on the patches' device. The
+    reference's product is bf16 x bf16 with f32 accumulation
+    (orb.py:178-195): both operands are rounded to bf16 here and multiplied
+    as fp32 (TF32 off), so every product is exact and only the f32
+    summation order can differ. Steered, the (N, 30 * bits) product holds
+    every bin's bits and each row keeps its own bin's.
     Returns (packed (N, bits // 32) int64, signs (N, bits) f32 {-1, +1})."""
     N = patches.shape[0]
     flat = patches.reshape(N, -1).to(torch.bfloat16).float()
-    sel = flat @ M
+    if steer:
+        bits = M.shape[1] // _N_ANGLE_BINS
+        theta = orientations(flat.reshape(patches.shape))
+        bin_f = torch.round(theta * (_N_ANGLE_BINS / (2.0 * np.pi)))
+        bin_idx = torch.remainder(bin_f.to(torch.int64), _N_ANGLE_BINS)
+        diffs = (flat @ M).reshape(N, _N_ANGLE_BINS, bits)
+        sel = torch.gather(diffs, 1, bin_idx[:, None, None].expand(N, 1, bits))[:, 0]
+    else:
+        sel = flat @ M
     bit = sel > 0.0
     return pack_bits(bit), torch.where(bit, 1.0, -1.0)
 

@@ -38,6 +38,19 @@ def draw_noise(gen: torch.Generator, n_hypotheses: int, n: int, device):
     return g, tw
 
 
+def seeded_noise(seed: int, n_hypotheses: int, n: int, device):
+    """A noise_fn(frame_id) for the drivers: `draw_noise` from a generator
+    on `device` reseeded from (seed, frame_id), so a frame's draws do not
+    depend on how the sequence is cut into chunks or resumed."""
+    gen = torch.Generator(device=device)
+
+    def noise(frame_id: int):
+        gen.manual_seed((seed * (1 << 32) + frame_id) % (1 << 63))
+        return draw_noise(gen, n_hypotheses, n, device)
+
+    return noise
+
+
 def _gn_step(T, pts_w, uv, w, K, damping):
     """One damped Gauss-Newton step on pose only, batched over leading dims
     of T (..., 4, 4); pts_w (..., n, 3), uv (..., n, 2), w (..., n)."""

@@ -18,6 +18,11 @@ from stereo_visual_slam_tpu.models import frontend as jfe
 from stereo_visual_slam_tpu.utils.config import small_config
 from stereo_visual_slam_tpu_torch.models import frontend as tfe
 
+# the suite runs in several pytest-xdist workers on a few cores: one
+# intra-op thread per process keeps the many small torch ops from
+# oversubscribing the CPU
+torch.set_num_threads(1)
+
 B = 4
 
 
@@ -32,7 +37,7 @@ def extracted():
         imgs[i, 0, :h, :w] = left
         imgs[i, 1, :h, :w] = right
     fj = jfe.make_batch_extractor(cfg, with_depth=False)(jnp.asarray(imgs))
-    ft = tfe.make_batch_extractor(cfg, "cpu")(torch.from_numpy(imgs))
+    ft = tfe.make_batch_extractor(cfg, "cpu", with_depth=False)(torch.from_numpy(imgs))
     return cfg, imgs, jax.tree.map(np.asarray, fj), ft
 
 

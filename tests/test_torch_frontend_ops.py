@@ -25,6 +25,11 @@ from stereo_visual_slam_tpu_torch.ops import orb as torb
 from stereo_visual_slam_tpu_torch.ops import stereo as tstereo
 from stereo_visual_slam_tpu_torch.ops.kernels import fast_kernel, patch_kernel, stereo_kernel
 
+# the suite runs in several pytest-xdist workers on a few cores: one
+# intra-op thread per process keeps the many small torch ops from
+# oversubscribing the CPU
+torch.set_num_threads(1)
+
 T = torch.from_numpy
 
 
@@ -131,7 +136,7 @@ def test_describe_patches_bits_exact():
     yx = np.stack([rng.integers(16, 112, 300), rng.integers(16, 240, 300)], -1).astype(np.int32)
     patches = np.asarray(jimage.gather_patches(jnp.asarray(blurred), jnp.asarray(yx), 33))
     p_j, s_j, _ = jorb.describe_patches(jnp.asarray(patches), bits=256, steer=False)
-    M = T(torb.upright_matrix_bf16(256, 33))
+    M = T(torb.brief_matrix_bf16(256, 33, False))
     # the port gathers exact f32 values; BRIEF rounds them to bf16 anyway
     exact = timage.gather_patches(T(blurred), T(yx), 33)
     p_t, s_t = torb.describe_patches(exact, M)

@@ -12,6 +12,11 @@ from stereo_visual_slam_tpu.geom import se3 as jse3
 from stereo_visual_slam_tpu_torch.geom import linalg as tlinalg
 from stereo_visual_slam_tpu_torch.geom import se3 as tse3
 
+# the suite runs in several pytest-xdist workers on a few cores: one
+# intra-op thread per process keeps the many small torch ops from
+# oversubscribing the CPU
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

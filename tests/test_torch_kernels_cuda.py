@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain torch versions at small shapes.
+"""The CUDA kernels against their plain torch versions at small shapes,
+and both drivers on the card against the CPU on a small slice (the host
+driver also under lookahead, through its pinned upload ring).
 They need a CUDA card (and nvcc to build the kernels): marked `cuda`, they
 skip without one. On the card, where jax is not installed (tests/conftest.py
 imports it): python -m pytest --noconftest tests/test_torch_kernels_cuda.py
@@ -116,7 +118,7 @@ def test_small_slice_card_equals_cpu(dev):
     for d in ("cpu", dev):
         slam = ChunkedSlam(cfg, chunk=8, device=d,
                            noise_fn=lambda f, d=d: tuple(t.to(d) for t in noise[f]))
-        slam.run(frames)
+        slam.run(frames, stage=False)
         slam.finish()
         runs[str(d)] = slam
     cpu, card = runs["cpu"], runs[str(dev)]
@@ -125,3 +127,116 @@ def test_small_slice_card_equals_cpu(dev):
     assert sorted(cpu.estimates) == sorted(card.estimates)
     for f in cpu.estimates:
         np.testing.assert_allclose(card.estimates[f], cpu.estimates[f], atol=1e-4, rtol=0)
+    # the staged path on the card gives the streamed path's results
+    staged = ChunkedSlam(cfg, chunk=8, device=dev,
+                         noise_fn=lambda f: tuple(t.to(dev) for t in noise[f]))
+    staged.run(frames, stage=True)
+    staged.finish()
+    assert [[s[k] for k in keys] for s in staged.stats] == \
+        [[s[k] for k in keys] for s in card.stats]
+    assert sorted(staged.estimates) == sorted(card.estimates)
+    for f in card.estimates:
+        np.testing.assert_allclose(staged.estimates[f], card.estimates[f], atol=1e-4, rtol=0)
+
+
+def _small_slice(n_frames, **keyframe):
+    import dataclasses
+
+    from stereo_visual_slam_tpu_torch.shared import small_config, synthetic
+
+    cfg = small_config()
+    cfg = cfg.replace(camera=dataclasses.replace(cfg.camera, cx=128.0, cy=64.0),
+                      keyframe=dataclasses.replace(cfg.keyframe, **keyframe))
+    world = synthetic.make_world(cfg, n_frames=n_frames, n_points=1500, seed=0)
+    return cfg, list(synthetic.frames(world))
+
+
+def _records(vo):
+    return [{k: v for k, v in s.items() if k not in ("wall_s", "ba_cost", "pose_only_cost")}
+            for s in vo.stats if s["state"] != "pending"]
+
+
+def test_host_driver_card_equals_cpu(dev):
+    """The host driver on the card (kernels, pinned ring, event waits)
+    against the CPU, per frame, on the same PnP draws, with fewer keyframes
+    (none at frame 1, as in the CPU parity tests against the reference) and
+    a window of 4 for BA to run."""
+    cpu = _host_card_vs_cpu(dev, min_inliers_skip=40, window_size=4)
+    assert not cpu.stats[1]["keyframe"]
+
+
+def test_host_driver_card_equals_cpu_keyframe_at_frame_1(dev):
+    """The same under the default keyframe rule, which makes frame 1 a
+    keyframe: its landmarks have ids of their own (the reference would reuse
+    frame 0's there and BA on that map moved poses by up to 2e-2 between
+    card and CPU)."""
+    cpu = _host_card_vs_cpu(dev, window_size=4)
+    assert cpu.stats[1]["keyframe"]
+
+
+def _host_card_vs_cpu(dev, **keyframe):
+    from stereo_visual_slam_tpu_torch.pipeline.vo import VisualOdometry
+    from stereo_visual_slam_tpu_torch.tracking.pnp import draw_noise
+
+    cfg, frames = _small_slice(14, **keyframe)
+    gen = torch.Generator().manual_seed(0)
+    H, N = cfg.pnp.n_hypotheses, cfg.frontend.max_raw_keypoints
+    noise = {f: draw_noise(gen, H, N, "cpu") for f, _, _ in frames}
+    runs = {}
+    for d in ("cpu", dev):
+        vo = VisualOdometry(cfg, device=d,
+                            noise_fn=lambda f, d=d: tuple(t.to(d) for t in noise[f]))
+        for f, left, right in frames:
+            vo.process(f, left, right)
+        vo.finish()
+        runs[str(d)] = vo
+    cpu, card = runs["cpu"], runs[str(dev)]
+    keys = ("state", "keyframe", "n_matches")
+    assert [[s.get(k) for k in keys] for s in _records(cpu)] == \
+        [[s.get(k) for k in keys] for s in _records(card)]
+    assert any("ba_cost" in s for s in card.stats)
+    assert sorted(cpu.estimates) == sorted(card.estimates)
+    for f in cpu.estimates:
+        np.testing.assert_allclose(card.estimates[f], cpu.estimates[f], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(card.map.row_id, cpu.map.row_id)
+    return cpu
+
+
+def test_upload_ring_under_lookahead(dev):
+    """lookahead=2 keeps three frames' uploads in flight through a ring of
+    four pinned buffers; a slot rewritten before its copy ended would
+    change a frame. Without BA, lookahead changes no result."""
+    from stereo_visual_slam_tpu_torch.pipeline.vo import VisualOdometry
+
+    cfg, frames = _small_slice(12)
+    runs = {}
+    for lookahead in (0, 2):
+        vo = VisualOdometry(cfg, lookahead=lookahead, enable_ba=False, device=dev)
+        for f, left, right in frames:
+            vo.process(f, left, right)
+        vo.finish()
+        runs[lookahead] = vo
+    assert len(runs[2]._ring) == 4
+    assert _records(runs[0]) == _records(runs[2])
+    for f in runs[0].estimates:
+        np.testing.assert_array_equal(runs[2].estimates[f], runs[0].estimates[f])
+
+
+def test_steered_bits_card_equals_cpu(dev):
+    """Steered BRIEF from the kernel's patches on the card against the same
+    patches on the CPU: orientation bins and bits equal."""
+    from stereo_visual_slam_tpu_torch.ops import image as im_ops
+    from stereo_visual_slam_tpu_torch.ops import orb
+
+    blurred = im_ops.box_blur(_image(4, 192, 256), 5).to(dev)
+    rng = np.random.default_rng(5)
+    yx = np.stack([rng.integers(0, 192, 3000), rng.integers(0, 256, 3000)], -1)
+    yx = torch.from_numpy(yx.astype(np.int32)).to(dev)
+    reset_launch_counts()
+    patches = patch_kernel.gather_patches(blurred, yx, 33)
+    assert launch_counts()["gather_patches"] == 1
+    M = torch.from_numpy(orb.brief_matrix_bf16(256, 33, True))
+    packed_card, signs_card = orb.describe_patches(patches, M.to(dev), steer=True)
+    packed_cpu, signs_cpu = orb.describe_patches(patches.cpu(), M, steer=True)
+    assert torch.equal(signs_card.cpu(), signs_cpu)
+    assert torch.equal(packed_card.cpu(), packed_cpu)

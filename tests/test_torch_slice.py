@@ -30,6 +30,11 @@ from stereo_visual_slam_tpu.utils.config import small_config
 from stereo_visual_slam_tpu_torch.models import slam_core
 from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam as TorchSlam
 
+# the suite runs in several pytest-xdist workers on a few cores: one
+# intra-op thread per process keeps the many small torch ops from
+# oversubscribing the CPU
+torch.set_num_threads(1)
+
 N_FRAMES = 16
 CHUNK = 8
 
@@ -148,6 +153,10 @@ def test_chunked_slam_needs_an_explicit_device():
 def test_port_imports_no_jax():
     code = ("import sys, stereo_visual_slam_tpu_torch, "
             "stereo_visual_slam_tpu_torch.pipeline.chunked, "
+            "stereo_visual_slam_tpu_torch.pipeline.vo, "
+            "stereo_visual_slam_tpu_torch.pipeline.snapshot, "
             "stereo_visual_slam_tpu_torch.run_vslam; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'yaml' not in sys.modules, 'yaml imported'; "
+            "assert 'matplotlib' not in sys.modules, 'matplotlib imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

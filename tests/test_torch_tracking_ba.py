@@ -22,6 +22,11 @@ from stereo_visual_slam_tpu_torch.ba import schur_lm as tlm
 from stereo_visual_slam_tpu_torch.ops import matcher as tmatcher
 from stereo_visual_slam_tpu_torch.tracking import pnp as tpnp
 
+# the suite runs in several pytest-xdist workers on a few cores: one
+# intra-op thread per process keeps the many small torch ops from
+# oversubscribing the CPU
+torch.set_num_threads(1)
+
 FX, FY, CX, CY = 718.856, 718.856, 607.1928, 185.2157
 K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], np.float32)
 T = torch.from_numpy

@@ -42,7 +42,7 @@ def run(cfg, frames, chunk):
     slam = ChunkedSlam(cfg, chunk=chunk, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    slam.run(frames)
+    slam.run(frames, stage=False)
     slam.finish()
     torch.cuda.synchronize()
     return slam, time.perf_counter() - t0
