@@ -6,8 +6,12 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
   1. device: require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from stereo_visual_slam_tpu_torch/csrc;
   3. each kernel against its plain torch version at the main path's shapes
-     (FAST+NMS and the patch gather bit-exact, ZNCC atol 2e-5), with median
-     CUDA-event times of both and the BRIEF bit-flip rate against the CPU;
+     (FAST+NMS on all 8 pyramid levels and the patch gather at every
+     level's keypoint budget, bit-exact; ZNCC at N=2,048 and at the stacked
+     N=16,384, atol 2e-5 with match_disparity's gates equal), with the
+     device times of the kernel, the plain version and, for the gather, one
+     PyTorch indexing call; each kernel's bound (ops/kernels/measure.py);
+     the BRIEF bit-flip rate against the CPU;
   4. the slice: production Config(), a 64-frame synthetic world, ChunkedSlam
      with chunk 8 on the card, streamed frame by frame (process/flush, the
      CLI's default path); not Lost, >= 90 % tracked, BA ran, the
@@ -28,7 +32,6 @@ kernels' measurements and per-path launch counts.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -61,131 +64,121 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 20) -> float:
-    """Median CUDA-event time of fn() over reps launches, after a warm-up."""
-    fn()
-    sync()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def stack_frames(frames, cfg):
-    H, W = cfg.padded_hw
-    imgs = np.zeros((len(frames), 2, H, W), np.uint8)
-    for i, (_, left, right) in enumerate(frames):
-        h, w = left.shape
-        imgs[i, 0, :h, :w] = left
-        imgs[i, 1, :h, :w] = right
-    return imgs
-
-
 def check_kernels(cfg, frames, dev):
-    """Phase 3: kernels against plain versions at the main path's shapes."""
-    from stereo_visual_slam_tpu_torch.models import frontend
-    from stereo_visual_slam_tpu_torch.ops import fast as fast_ops
+    """Phase 3: each kernel against its plain version at the main path's
+    shapes (ops/kernels/measure.py builds them: every pyramid level for
+    FAST+NMS and the patch gather, N=2,048 and the stacked N=16,384 for
+    ZNCC), with device times of the kernel, the plain version and, for the
+    gather, one PyTorch indexing call; and each kernel's bound."""
     from stereo_visual_slam_tpu_torch.ops import image as im_ops
     from stereo_visual_slam_tpu_torch.ops import orb as orb_ops
     from stereo_visual_slam_tpu_torch.ops import stereo as stereo_ops
     from stereo_visual_slam_tpu_torch.ops.kernels import (
-        fast_kernel, patch_kernel, stereo_kernel,
+        fast_kernel, measure, patch_kernel, stereo_kernel,
     )
 
     fe, cam = cfg.frontend, cfg.camera
-    imgs = torch.from_numpy(stack_frames(frames[:CHUNK], cfg)).to(dev)
-    B, _, H, W = imgs.shape
-    left = imgs[:, 0].float()
+    inp = measure.kernel_inputs(cfg, frames[:CHUNK], dev)
+    ms = measure.device_ms
     results = {}
 
-    # K1: stacked L0 map and one coarse level
-    levels = frontend._level_geometry(cfg)
-    _, (h3, w3), (H3, W3), _ = levels[3]
-    vh, vw = cfg.image_hw
-    mats = im_ops.resize_matrices((vh, vw), (h3, w3), dev)
-    coarse = im_ops.pad_to(im_ops.resize_linear(left[:, :vh, :vw], mats), (H3, W3))
-    coarse = coarse.reshape(B * H3, W3).contiguous()
-    stacked = left.reshape(B * H, W).contiguous()
-    err = 0.0
-    for img in (stacked, coarse):
+    # K1: every level's (8*H_i, W_i) stack, bit-exact
+    levels = []
+    for i, img in enumerate(inp["levels"]):
         k = fast_kernel.fast_nms_cuda(img, fe.fast_threshold)
         p = fast_kernel.fast_nms_plain(img, fe.fast_threshold)
         sync()
         if not torch.equal(k, p):
-            raise AssertionError(f"fast_nms differs from plain at {tuple(img.shape)}: "
+            raise AssertionError(f"fast_nms differs from plain at L{i} {tuple(img.shape)}: "
                                  f"{int((k != p).sum())} pixels")
-        err = max(err, float((k - p).abs().max()))
-    results["fast_nms"] = dict(
-        max_abs_err=err,
-        ms=median_ms(lambda: fast_kernel.fast_nms_cuda(stacked, fe.fast_threshold)),
-        plain_ms=median_ms(lambda: fast_kernel.fast_nms_plain(stacked, fe.fast_threshold)),
-        shape=list(stacked.shape),
-    )
-    log(f"fast_nms: bit-exact on {tuple(stacked.shape)} and {tuple(coarse.shape)}")
+        bms, by = measure.fast_bound(img, fe.fast_threshold)
+        levels.append(dict(
+            shape=list(img.shape), max_abs_err=float((k - p).abs().max()),
+            ms=ms(lambda: fast_kernel.fast_nms_cuda(img, fe.fast_threshold)),
+            plain_ms=ms(lambda: fast_kernel.fast_nms_plain(img, fe.fast_threshold), reps=5),
+            bound_ms=bms, bound_by=by))
+    results["fast_nms"] = dict(levels[0], library_ms=None, levels=levels,
+                               sum_ms=sum(lv["ms"] for lv in levels),
+                               sum_bound_ms=sum(lv["bound_ms"] for lv in levels))
+    log("fast_nms: bit-exact at " + ", ".join(
+        f"L{i} {tuple(lv['shape'])} {lv['ms']:.4f} ms" for i, lv in enumerate(levels)))
 
-    # K2: ~1000 L0 keypoints per frame on the blurred stacked image
-    score = fast_kernel.fast_nms_cuda(stacked, fe.fast_threshold).reshape(B, H, W)
-    _, yx = fast_ops.nms_topk(score, 1000)
-    row_off = (torch.arange(B, device=dev, dtype=torch.int32) * H)[:, None]
-    yx_st = torch.stack([yx[..., 0] + row_off, yx[..., 1]], -1).reshape(-1, 2).contiguous()
-    blurred = im_ops.box_blur(stacked, fe.blur_box)
-    pk = patch_kernel.gather_patches_cuda(blurred, yx_st, fe.patch_size, H)
-    pp = patch_kernel.gather_patches_plain(blurred, yx_st, fe.patch_size, H)
-    sync()
-    if not torch.equal(pk, pp):
-        raise AssertionError(f"gather_patches differs from plain: {int((pk != pp).sum())}")
-    # BRIEF bits, upright and steered, from the kernel's patches on the
-    # card vs the same patches on the CPU
+    # K2: every level's 8 x budget_i keypoints on the blurred stack,
+    # bit-exact; the yardstick is one flat-index gather, its index built
+    # outside the timed call
+    P = fe.patch_size
+    gathers = []
+    for i, (blurred, yx, fh) in enumerate(inp["gathers"]):
+        pk = patch_kernel.gather_patches_cuda(blurred, yx, P, fh)
+        pp = patch_kernel.gather_patches_plain(blurred, yx, P, fh)
+        y0, x0 = im_ops.patch_origins(yx, blurred.shape, P, fh)
+        ar = torch.arange(P, device=dev)
+        idx = ((y0[:, None, None] + ar[None, :, None]) * blurred.shape[1]
+               + x0[:, None, None] + ar[None, None, :])
+        flat = blurred.view(-1)
+        sync()
+        if not (torch.equal(pk, pp) and torch.equal(flat[idx], pp)):
+            raise AssertionError(f"gather_patches differs from plain at L{i}: "
+                                 f"{int((pk != pp).sum())}")
+        bms, by = measure.gather_bound(blurred, yx.shape[0], P)
+        gathers.append(dict(
+            shape=[int(yx.shape[0]), P, P], max_abs_err=float((pk - pp).abs().max()),
+            ms=ms(lambda: patch_kernel.gather_patches_cuda(blurred, yx, P, fh)),
+            plain_ms=ms(lambda: patch_kernel.gather_patches_plain(blurred, yx, P, fh), reps=10),
+            library_ms=ms(lambda: flat[idx]), bound_ms=bms, bound_by=by))
+        if i == 0:
+            patches0 = pk
+    results["gather_patches"] = dict(gathers[0], levels=gathers,
+                                     sum_ms=sum(g["ms"] for g in gathers),
+                                     sum_library_ms=sum(g["library_ms"] for g in gathers),
+                                     sum_bound_ms=sum(g["bound_ms"] for g in gathers))
+    # BRIEF bits, upright and steered, from the kernel's level-0 patches on
+    # the card vs the same patches on the CPU
     flips = {}
     for steer in (False, True):
-        M = torch.from_numpy(orb_ops.brief_matrix_bf16(fe.descriptor_bits, fe.patch_size, steer))
-        _, signs_gpu = orb_ops.describe_patches(pk, M.to(dev), steer)
-        _, signs_cpu = orb_ops.describe_patches(pk.cpu(), M, steer)
+        M = torch.from_numpy(orb_ops.brief_matrix_bf16(fe.descriptor_bits, P, steer))
+        _, signs_gpu = orb_ops.describe_patches(patches0, M.to(dev), steer)
+        _, signs_cpu = orb_ops.describe_patches(patches0.cpu(), M, steer)
         flips[steer] = int((signs_gpu.cpu() != signs_cpu).sum())
-    results["gather_patches"] = dict(
-        max_abs_err=float((pk - pp).abs().max()),
-        ms=median_ms(lambda: patch_kernel.gather_patches_cuda(blurred, yx_st, fe.patch_size, H)),
-        plain_ms=median_ms(lambda: patch_kernel.gather_patches_plain(blurred, yx_st, fe.patch_size, H)),
-        shape=[int(yx_st.shape[0]), fe.patch_size, fe.patch_size],
+    results["gather_patches"].update(
         brief_bit_flips=flips[False], steered_bit_flips=flips[True],
-        brief_bits=int(signs_cpu.numel()),
-    )
-    log(f"gather_patches: bit-exact on {yx_st.shape[0]} keypoints; BRIEF bit flips "
-        f"card vs CPU: upright {flips[False]}, steered {flips[True]} of {signs_cpu.numel()}")
+        brief_bits=int(signs_cpu.numel()))
+    log("gather_patches: bit-exact at " + ", ".join(
+        f"L{i} {g['shape'][0]} {g['ms']:.4f} ms" for i, g in enumerate(gathers))
+        + f"; BRIEF bit flips card vs CPU: upright {flips[False]}, steered "
+        f"{flips[True]} of {signs_cpu.numel()}")
 
-    # K3: 2048 keypoints, D = 96, on frame 0
-    _, yx0 = fast_ops.nms_topk(score[:1], fe.max_raw_keypoints)
-    yx0 = yx0[0].contiguous()
-    l0 = left[0].contiguous()
-    r0 = imgs[0, 1].float().contiguous()
-    D, P = fe.max_disparity, fe.stereo_patch
-    zk = stereo_kernel.zncc_sweep_cuda(l0, r0, yx0, patch=P, max_disparity=D)
-    zp = stereo_kernel.zncc_sweep_plain(l0, r0, yx0, patch=P, max_disparity=D)
-    sync()
-    zerr = float((zk - zp).abs().max())
-    if not zerr <= ZNCC_ATOL:
-        raise AssertionError(f"zncc_sweep max |err| {zerr} > {ZNCC_ATOL}")
-    kw = dict(fx=cam.fx, baseline=cam.baseline, max_disparity=D, patch=P,
+    # K3: N=2,048 on frame 0's pair and the stacked N=16,384, atol 2e-5,
+    # match_disparity's gates equal
+    D, Pz = fe.max_disparity, fe.stereo_patch
+    kw = dict(fx=cam.fx, baseline=cam.baseline, max_disparity=D, patch=Pz,
               min_zncc=fe.min_zncc, min_depth=fe.min_depth,
               max_depth=fe.max_depth, reliable_depth=fe.reliable_depth)
-    valid = torch.ones(yx0.shape[0], dtype=torch.bool, device=dev)
-    a = stereo_ops.match_disparity(l0, r0, yx0, valid, use_kernel=True, **kw)
-    b = stereo_ops.match_disparity(l0, r0, yx0, valid, use_kernel=False, **kw)
-    if not (torch.equal(a.valid, b.valid) and torch.equal(a.reliable, b.reliable)):
-        raise AssertionError("match_disparity gates differ between kernel and plain")
-    results["zncc_sweep"] = dict(
-        max_abs_err=zerr,
-        ms=median_ms(lambda: stereo_kernel.zncc_sweep_cuda(l0, r0, yx0, patch=P, max_disparity=D)),
-        plain_ms=median_ms(lambda: stereo_kernel.zncc_sweep_plain(l0, r0, yx0, patch=P, max_disparity=D)),
-        shape=[int(yx0.shape[0]), D],
-    )
-    log(f"zncc_sweep: max |err| {zerr:.3g} <= {ZNCC_ATOL}; valid/reliable equal")
+    shapes = []
+    for label, (l, r, yx) in inp["zncc"].items():
+        zk = stereo_kernel.zncc_sweep_cuda(l, r, yx, patch=Pz, max_disparity=D)
+        zp = stereo_kernel.zncc_sweep_plain(l, r, yx, patch=Pz, max_disparity=D)
+        sync()
+        zerr = float((zk - zp).abs().max())
+        if not zerr <= ZNCC_ATOL:
+            raise AssertionError(f"zncc_sweep {label}: max |err| {zerr} > {ZNCC_ATOL}")
+        valid = torch.ones(yx.shape[0], dtype=torch.bool, device=dev)
+        a = stereo_ops.match_disparity(l, r, yx, valid, use_kernel=True, **kw)
+        b = stereo_ops.match_disparity(l, r, yx, valid, use_kernel=False, **kw)
+        if not (torch.equal(a.valid, b.valid) and torch.equal(a.reliable, b.reliable)):
+            raise AssertionError(f"match_disparity gates differ between kernel and plain ({label})")
+        bms, by = measure.zncc_bound(l, yx.shape[0], Pz, D)
+        shapes.append(dict(
+            shape=[int(yx.shape[0]), D], image=list(l.shape), max_abs_err=zerr,
+            ms=ms(lambda: stereo_kernel.zncc_sweep_cuda(l, r, yx, patch=Pz, max_disparity=D)),
+            plain_ms=ms(lambda: stereo_kernel.zncc_sweep_plain(l, r, yx, patch=Pz, max_disparity=D),
+                        reps=5),
+            bound_ms=bms, bound_by=by))
+    results["zncc_sweep"] = dict(shapes[0], library_ms=None, shapes=shapes,
+                                 max_abs_err=max(z["max_abs_err"] for z in shapes))
+    log("zncc_sweep: " + ", ".join(
+        f"N={z['shape'][0]} max |err| {z['max_abs_err']:.3g} {z['ms']:.4f} ms" for z in shapes)
+        + f" (atol {ZNCC_ATOL}); valid/reliable equal")
     sync()
     return results
 
@@ -193,7 +186,7 @@ def check_kernels(cfg, frames, dev):
 def accuracy(estimates, world, label):
     """(ATE m, KITTI trans %) of the estimates against the world's poses,
     after checking they are finite 4x4 poses."""
-    from stereo_visual_slam_tpu_torch.shared import trajectory as traj
+    from stereo_visual_slam_tpu_torch.pipeline import trajectory as traj
 
     fids = sorted(estimates)
     est = np.stack([estimates[f] for f in fids])
@@ -308,7 +301,7 @@ def reference_faithful(cfg):
     anchor (tests/test_reference_config.py)."""
     import dataclasses
 
-    from stereo_visual_slam_tpu_torch.shared import reference_ba_schedule
+    from stereo_visual_slam_tpu_torch.utils.config import reference_ba_schedule
 
     return cfg.replace(
         frontend=dataclasses.replace(cfg.frontend, steer_descriptor=True),
@@ -358,9 +351,9 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    from stereo_visual_slam_tpu_torch.shared import synthetic
-    from stereo_visual_slam_tpu_torch.shared import Config
+    from stereo_visual_slam_tpu_torch.data import synthetic
     from stereo_visual_slam_tpu_torch.ops.kernels import _build
+    from stereo_visual_slam_tpu_torch.utils.config import Config
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -390,11 +383,12 @@ def main() -> int:
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=launches["chunked"][name],
                          launches_by_path={p: c[name] for p, c in launches.items()},
-                         max_abs_err=m["max_abs_err"],
-                         ms=m["ms"], plain_ms=m["plain_ms"], shape=m["shape"]))
+                         **{k: v for k, v in m.items() if k not in (
+                             "brief_bit_flips", "steered_bit_flips", "brief_bits")}))
+    g = measured["gather_patches"]
     print(json.dumps({"kernels": rows, "host_driver": host_rates,
-                      "steered_bit_flips": [measured["gather_patches"]["steered_bit_flips"],
-                                            measured["gather_patches"]["brief_bits"]]}))
+                      "brief_bit_flips": [g["brief_bit_flips"], g["brief_bits"]],
+                      "steered_bit_flips": [g["steered_bit_flips"], g["brief_bits"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

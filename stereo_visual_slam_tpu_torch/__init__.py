@@ -13,19 +13,25 @@ Layout:
   tracking/     batched PnP-RANSAC
   ba/           LM + Schur bundle adjustment, pose-only, the BA schedule
   models/       batched extractor, tracking step, the SLAM core
-  pipeline/     ChunkedSlam, the production chunked pipeline
+  pipeline/     ChunkedSlam (the production chunked pipeline), the
+                host-sequenced VisualOdometry, snapshots, trajectory tools
+                and the visualisation writers
+  mapping/      the host-side keyframe/landmark map of the host driver
+  data/         the synthetic world and the KITTI reader
+  utils/        the config and its YAML load/save
   csrc/         CUDA C++ sources for sm_90a
 
-The config (`stereo_visual_slam_tpu.utils.config`), the synthetic/KITTI data
-and the trajectory tools are shared with the JAX package: those modules
-import no jax.
+The config, data sources, map store, trajectory tools and visualisation
+writers are numpy-only copies of the JAX package's modules: the port
+imports nothing of the JAX package (tests/test_torch_shared_copies.py
+holds each copy equal to its original).
 
 Numerics follow the reference's CPU oracle: fp32 everywhere, TF32 off.
 """
 
 import torch
 
-from stereo_visual_slam_tpu_torch.shared import Config  # noqa: F401
+from stereo_visual_slam_tpu_torch.utils.config import Config  # noqa: F401
 
 # The reference computes its geometry and BA at highest f32 precision; TF32
 # (~3 decimal digits) would move poses by far more than the tests allow.

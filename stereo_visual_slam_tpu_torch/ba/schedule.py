@@ -8,9 +8,9 @@ from typing import NamedTuple
 
 import torch
 
-from stereo_visual_slam_tpu_torch.shared import BAConfig
 from stereo_visual_slam_tpu_torch.ba import pose_only as pose_only_mod
 from stereo_visual_slam_tpu_torch.ba import schur_lm
+from stereo_visual_slam_tpu_torch.utils.config import BAConfig
 
 
 class ScheduleInput(NamedTuple):

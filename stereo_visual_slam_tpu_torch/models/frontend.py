@@ -29,13 +29,13 @@ from typing import NamedTuple
 
 import torch
 
-from stereo_visual_slam_tpu_torch.shared import Config
 from stereo_visual_slam_tpu_torch.ops import anms as anms_ops
 from stereo_visual_slam_tpu_torch.ops import fast as fast_ops
 from stereo_visual_slam_tpu_torch.ops import image as im_ops
 from stereo_visual_slam_tpu_torch.ops import orb as orb_ops
 from stereo_visual_slam_tpu_torch.ops import stereo as stereo_ops
 from stereo_visual_slam_tpu_torch.ops.kernels import fast_kernel, patch_kernel
+from stereo_visual_slam_tpu_torch.utils.config import Config
 
 
 class FrameFeatures(NamedTuple):

@@ -25,12 +25,12 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from stereo_visual_slam_tpu_torch.shared import Config
 from stereo_visual_slam_tpu_torch.ba import schedule as ba_schedule
 from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.models import frontend as frontend_mod
 from stereo_visual_slam_tpu_torch.models import vslam
 from stereo_visual_slam_tpu_torch.models.frontend import FrameFeatures
+from stereo_visual_slam_tpu_torch.utils.config import Config
 
 
 class MapState(NamedTuple):

@@ -12,11 +12,11 @@ from typing import NamedTuple
 
 import torch
 
-from stereo_visual_slam_tpu_torch.shared import Config
 from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.models.frontend import FrameFeatures
 from stereo_visual_slam_tpu_torch.ops import matcher as matcher_ops
 from stereo_visual_slam_tpu_torch.tracking import pnp
+from stereo_visual_slam_tpu_torch.utils.config import Config
 
 
 class TrackState(NamedTuple):

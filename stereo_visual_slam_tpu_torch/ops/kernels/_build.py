@@ -6,6 +6,11 @@ The library is built at first use from `csrc/*.cu` into
 .gitignore), so a fresh checkout builds it on its first kernel call and an
 edited source gets a new library. Nothing is imported or compiled when this
 module is imported: the CPU tests import every module.
+
+Every function takes the source directory, `csrc/` by default: another
+directory of sources with the same C entry points (an earlier version of
+the kernels) builds into a library of its own, so that `measure.py` can
+time two versions in one process.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
 import torch
 
@@ -39,11 +44,11 @@ SIGNATURES = {
                        _c_int, _c_int, _c_int, _c_ptr],
 }
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[Path, ctypes.CDLL] = {}
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(src_dir: Path):
+    return sorted(src_dir.glob("*.cu")) + sorted(src_dir.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -57,28 +62,32 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(src_dir: Path = CSRC) -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources(src_dir):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / "libsvs_kernels.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for these sources exists: one
-    nvcc per source, all started together, then one link."""
-    out = library_path()
+def build(src_dir: Path = CSRC) -> Path:
+    """Compile the kernels of src_dir unless the library for these sources
+    exists: one nvcc per source, all started together, then one link."""
+    src_dir = Path(src_dir).resolve()
+    out = library_path(src_dir)
     if out.exists():
         return out
+    cus = [s for s in _sources(src_dir) if s.suffix == ".cu"]
+    if not cus:
+        raise FileNotFoundError(f"no CUDA sources in {src_dir}")
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         jobs = []
-        for src in (s for s in _sources() if s.suffix == ".cu"):
+        for src in cus:
             obj = os.path.join(tmp, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(src_dir), "-c", "-o", obj, str(src)]
             jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.STDOUT, text=True)))
         logs = [(obj, proc.communicate()[0], proc.returncode) for obj, proc in jobs]
@@ -95,17 +104,20 @@ def build() -> Path:
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def library(src_dir: Path = CSRC) -> ctypes.CDLL:
+    """The loaded kernel library of src_dir (built on first call), with the
+    argument types of each entry point it defines. Every kernel launch
+    calls this: after the first call it is one dictionary lookup."""
+    lib = _libs.get(src_dir)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(src_dir)))
         for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _libs[src_dir] = lib
+    return lib
 
 
 def stream_handle(t: torch.Tensor) -> int:

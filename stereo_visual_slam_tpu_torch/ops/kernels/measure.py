@@ -1,0 +1,315 @@
+"""Time the CUDA kernels at the main path's shapes, and an earlier version
+of them beside the current one, in one process on one card.
+
+    python -m stereo_visual_slam_tpu_torch.ops.kernels.measure \
+        [--parent DIR] [--rounds 5] [--out DIR]
+
+Inputs: production Config(), the first 8 frames (one chunk) of the default
+synthetic world. Shapes: FAST+NMS on each pyramid level's (8*H_i, W_i)
+stack; the patch gather at each level's 8 x budget_i keypoints on the
+blurred stack; the ZNCC sweep at N=2,048 on frame 0's pair (the keyframe
+branch and the host driver) and N=16,384 on the stacked pair with per-frame
+row offsets (the eager chunk path).
+
+`--parent DIR` names a directory of earlier kernel sources with the same C
+entry points (e.g. a copy of an earlier commit's csrc/ under archive/),
+built into a library of its own. Each round times, per shape, the parent
+and the current kernel in the order parent, current, current, parent; each
+sample is the device time of one launch, averaged over back-to-back
+launches queued behind a sleep kernel so that no host gap enters it. The
+current kernels are also checked against their plain versions and the
+parent's (FAST+NMS and the gather bit-exact, ZNCC atol 2e-5).
+
+The module also holds what `chip_smoke.py` needs for the same shapes: the
+inputs and each kernel's bound (the least time the card could take).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from stereo_visual_slam_tpu_torch.ops.kernels import _build
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s outside the
+# tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+ZNCC_ATOL = 2e-5
+FRAMES = 8
+# operations per pixel of FAST+NMS: the compass test (4 differences, 8
+# compares) and the 8 NMS compares for every pixel; the full arc score (16
+# differences, 128 min/max, 30 to reduce the 16 arcs, 3 selects) for the
+# pixels the compass test passes
+FAST_OPS_ALL, FAST_OPS_CANDIDATE = 20, 177
+# flops per window pixel of the ZNCC sweep: the difference from the window
+# mean, its square sum and its product with the patch (2 each)
+ZNCC_FLOPS = 5
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of bytes over the
+    memory rate and operations over the f32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compass_pass(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """(H, W) bool: the pixels whose compass test passes (at least two of
+    the circle pixels 0, 4, 8, 12 above the threshold, or two below minus
+    it), the ones FAST+NMS's kernel scores in full; every pixel with a
+    nonzero FAST score is one of them."""
+    p = torch.nn.functional.pad(img, (3, 3, 3, 3))
+    H, W = img.shape
+    d = torch.stack([p[0:H, 3:3 + W], p[3:3 + H, 6:6 + W],
+                     p[6:6 + H, 3:3 + W], p[3:3 + H, 0:W]]) - img
+    return ((d > threshold).sum(0) >= 2) | ((-d > threshold).sum(0) >= 2)
+
+
+def fast_bound(img: torch.Tensor, threshold: float) -> tuple:
+    n = img.numel()
+    ops = n * FAST_OPS_ALL + int(compass_pass(img, threshold).sum()) * FAST_OPS_CANDIDATE
+    return bound(8.0 * n, ops)
+
+
+def gather_bound(img: torch.Tensor, n: int, patch: int) -> tuple:
+    return bound(4.0 * img.numel() + 8.0 * n + 4.0 * n * patch * patch, 0.0)
+
+
+def zncc_bound(img: torch.Tensor, n: int, patch: int, D: int) -> tuple:
+    return bound(8.0 * img.numel() + 8.0 * n + 4.0 * n * D, ZNCC_FLOPS * n * D * patch * patch)
+
+
+def production_frames(n_frames: int = FRAMES):
+    """Production Config() and the first frames of the default world."""
+    from stereo_visual_slam_tpu_torch.data import synthetic
+    from stereo_visual_slam_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    world = synthetic.make_world(cfg, n_frames=n_frames, n_points=8000, seed=0)
+    return cfg, list(synthetic.frames(world))
+
+
+def kernel_inputs(cfg, frames, dev) -> dict:
+    """The three kernels' inputs at the main path's shapes, for one chunk
+    of frames (models/frontend.py builds the same per level)."""
+    from stereo_visual_slam_tpu_torch.models import frontend
+    from stereo_visual_slam_tpu_torch.ops import fast as fast_ops
+    from stereo_visual_slam_tpu_torch.ops import image as im_ops
+    from stereo_visual_slam_tpu_torch.ops.kernels import fast_kernel
+
+    fe = cfg.frontend
+    H, W = cfg.padded_hw
+    vh, vw = cfg.image_hw
+    imgs = np.zeros((len(frames), 2, H, W), np.uint8)
+    for i, (_, left, right) in enumerate(frames):
+        imgs[i, 0, :vh, :vw] = left
+        imgs[i, 1, :vh, :vw] = right
+    imgs = torch.from_numpy(imgs).to(dev)
+    B = imgs.shape[0]
+    left = imgs[:, 0].float()
+    levels, gathers = [], []
+    for i, (_, (h_i, w_i), (H_i, W_i), budget) in enumerate(frontend._level_geometry(cfg)):
+        if i == 0:
+            level = left
+        else:
+            mats = im_ops.resize_matrices((vh, vw), (h_i, w_i), dev)
+            level = im_ops.pad_to(im_ops.resize_linear(left[:, :vh, :vw], mats), (H_i, W_i))
+        stacked = level.reshape(B * H_i, W_i).contiguous()
+        levels.append(stacked)
+        score = fast_kernel.fast_nms_plain(stacked, fe.fast_threshold).reshape(B, H_i, W_i)
+        m = fe.border_margin
+        yy = torch.arange(H_i, device=dev)[:, None]
+        xx = torch.arange(W_i, device=dev)[None, :]
+        score = torch.where((yy >= m) & (yy < h_i - m) & (xx >= m) & (xx < w_i - m), score, 0.0)
+        _, yx = fast_ops.nms_topk(score, budget)
+        row_off = (torch.arange(B, device=dev, dtype=torch.int32) * H_i)[:, None]
+        yx_st = torch.stack([yx[..., 0] + row_off, yx[..., 1]], -1).reshape(-1, 2).contiguous()
+        gathers.append((im_ops.box_blur(stacked, fe.blur_box), yx_st, H_i))
+        if i == 0:
+            score0 = score
+    # ZNCC: each frame's 2,048 strongest level-0 keypoints
+    _, yx0 = fast_ops.nms_topk(score0, fe.max_raw_keypoints)        # (B, N, 2)
+    row_off = (torch.arange(B, device=dev, dtype=torch.int32) * H)[:, None]
+    yx_st = torch.stack([yx0[..., 0] + row_off, yx0[..., 1]], -1).reshape(-1, 2).contiguous()
+    right = imgs[:, 1].float()
+    zncc = {
+        "single": (left[0].contiguous(), right[0].contiguous(), yx0[0].contiguous()),
+        "stacked": (left.reshape(B * H, W).contiguous(), right.reshape(B * H, W).contiguous(), yx_st),
+    }
+    return dict(levels=levels, gathers=gathers, zncc=zncc)
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """Device time of one fn() call: reps calls queued back to back behind
+    a sleep kernel that outlasts their enqueueing (so the host's launch
+    rate does not enter), between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    # cycles at up to 2 GHz: twice the enqueue time of the reps, + 0.1 ms
+    torch.cuda._sleep(int(2e9 * (2.0 * reps * host_s + 1e-4)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def raw_calls(lib, cfg, dev):
+    """Launchers of lib's three C entry points (None for one that lib does
+    not define), outputs preallocated, for timing two libraries with the
+    same entry points on equal terms."""
+    fe = cfg.frontend
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def fast(img):
+        out = torch.empty_like(img)
+
+        def go():
+            _build.check("fast_nms", lib.svs_fast_nms(
+                img.data_ptr(), out.data_ptr(), img.shape[0], img.shape[1],
+                float(fe.fast_threshold), stream))
+            return out
+        return go
+
+    def gather(img, yx, frame_h):
+        P = fe.patch_size
+        out = torch.empty((yx.shape[0], P, P), dtype=torch.float32, device=dev)
+
+        def go():
+            _build.check("gather_patches", lib.svs_gather_patches(
+                img.data_ptr(), yx.data_ptr(), out.data_ptr(), yx.shape[0],
+                img.shape[0], img.shape[1], frame_h, P, stream))
+            return out
+        return go
+
+    def zncc(left, right, yx):
+        D, P = fe.max_disparity, fe.stereo_patch
+        out = torch.empty((yx.shape[0], D), dtype=torch.float32, device=dev)
+
+        def go():
+            _build.check("zncc_sweep", lib.svs_zncc_sweep(
+                left.data_ptr(), right.data_ptr(), yx.data_ptr(), out.data_ptr(),
+                yx.shape[0], left.shape[0], left.shape[1], P, D, stream))
+            return out
+        return go
+
+    return [fn if hasattr(lib, name) else None for fn, name in (
+        (fast, "svs_fast_nms"), (gather, "svs_gather_patches"), (zncc, "svs_zncc_sweep"))]
+
+
+def _check(name, shape, new, parent, plain, exact):
+    for label, other in (("parent", parent), ("plain", plain)):
+        if other is None:
+            continue
+        err = float((new - other).abs().max()) if new.numel() else 0.0
+        if (exact and not torch.equal(new, other)) or err > ZNCC_ATOL:
+            raise AssertionError(f"{name} {shape}: differs from the {label} version (max |err| {err})")
+
+
+def _summary(xs):
+    return dict(median_ms=statistics.median(xs), min_ms=min(xs), max_ms=max(xs), samples=xs)
+
+
+def measure(parent_dir, rounds: int) -> dict:
+    from stereo_visual_slam_tpu_torch.ops.kernels import fast_kernel, patch_kernel, stereo_kernel
+
+    dev = torch.device("cuda")
+    cfg, frames = production_frames()
+    fe = cfg.frontend
+    inp = kernel_inputs(cfg, frames, dev)
+    libs = {"new": _build.library()}
+    if parent_dir is not None:
+        libs["parent"] = _build.library(Path(parent_dir))
+    calls = {k: raw_calls(lib, cfg, dev) for k, lib in libs.items()}
+
+    cases = []   # (kernel, shape label, {variant: launcher}, bound, exact, plain)
+    for i, img in enumerate(inp["levels"]):
+        cases.append(("fast_nms", f"L{i} {tuple(img.shape)}",
+                      {k: c[0](img) for k, c in calls.items() if c[0]},
+                      fast_bound(img, fe.fast_threshold), True,
+                      lambda img=img: fast_kernel.fast_nms_plain(img, fe.fast_threshold)))
+    for i, (blurred, yx, fh) in enumerate(inp["gathers"]):
+        cases.append(("gather_patches", f"L{i} {yx.shape[0]} x {fe.patch_size}^2",
+                      {k: c[1](blurred, yx, fh) for k, c in calls.items() if c[1]},
+                      gather_bound(blurred, yx.shape[0], fe.patch_size), True,
+                      lambda b=blurred, y=yx, h=fh: patch_kernel.gather_patches_plain(b, y, fe.patch_size, h)))
+    for label, (l, r, yx) in inp["zncc"].items():
+        cases.append(("zncc_sweep", f"{label} N={yx.shape[0]} on {tuple(l.shape)}",
+                      {k: c[2](l, r, yx) for k, c in calls.items() if c[2]},
+                      zncc_bound(l, yx.shape[0], fe.stereo_patch, fe.max_disparity), False,
+                      lambda l=l, r=r, y=yx: stereo_kernel.zncc_sweep_plain(
+                          l, r, y, patch=fe.stereo_patch, max_disparity=fe.max_disparity)))
+
+    for name, shape, fns, _, exact, plain in cases:
+        new = fns["new"]().clone()
+        par = fns["parent"]().clone() if "parent" in fns else None
+        _check(name, shape, new, par, plain(), exact)
+    torch.cuda.synchronize()
+
+    samples = [{k: [] for k in fns} for _, _, fns, _, _, _ in cases]
+    for _ in range(rounds):
+        for c, (_, _, fns, _, _, _) in enumerate(cases):
+            for k in ("parent", "new", "new", "parent"):
+                if k in fns:
+                    samples[c][k].append(device_ms(fns[k]))
+    rows = []
+    for c, (name, shape, _, (bms, by), _, _) in enumerate(cases):
+        row = dict(kernel=name, shape=shape, bound_ms=bms, bound_by=by,
+                   **{k: _summary(v) for k, v in samples[c].items()})
+        if "parent" in row:
+            row["new_over_parent"] = row["new"]["median_ms"] / row["parent"]["median_ms"]
+        rows.append(row)
+    return dict(card=card_line(), torch=torch.__version__, rounds=rounds, rows=rows)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--parent", help="directory of earlier kernel sources to time beside csrc/")
+    p.add_argument("--rounds", type=int, default=5)
+    p.add_argument("--out", default="chiprun_out", help="directory for measure_kernels.json")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("measure: no CUDA device", file=sys.stderr)
+        return 1
+    res = measure(args.parent, args.rounds)
+    for row in res["rows"]:
+        par = row.get("parent", {}).get("median_ms")
+        print(f"{row['kernel']:15s} {row['shape']:42s} new {row['new']['median_ms']:.6f} "
+              f"[{row['new']['min_ms']:.6f}-{row['new']['max_ms']:.6f}] ms"
+              + (f"  parent {par:.6f} [{row['parent']['min_ms']:.6f}-"
+                 f"{row['parent']['max_ms']:.6f}] ms" if par is not None else "")
+              + f"  bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "measure_kernels.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(res["card"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

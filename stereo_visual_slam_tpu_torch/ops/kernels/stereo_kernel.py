@@ -13,7 +13,8 @@ import torch
 from stereo_visual_slam_tpu_torch.ops import stereo
 from stereo_visual_slam_tpu_torch.ops.kernels import _build
 
-MAX_THREADS = 1024  # one thread per disparity
+MAX_DISPARITY = 128  # 32 lanes x at most 4 disparities each
+MAX_PATCH = 15      # the kernel is instantiated for odd patches 3..15
 
 
 def zncc_sweep_plain(
@@ -37,8 +38,9 @@ def zncc_sweep_cuda(
         raise ValueError("zncc_sweep: left and right differ in shape")
     if yx.shape[1] != 2 or not (left.device == right.device == yx.device):
         raise ValueError("zncc_sweep: yx must be (N, 2) on the images' device")
-    if patch % 2 != 1 or not (1 <= max_disparity <= MAX_THREADS):
-        raise ValueError(f"zncc_sweep: odd patch and 1 <= D <= {MAX_THREADS} required")
+    if patch % 2 != 1 or not (3 <= patch <= MAX_PATCH) or not (1 <= max_disparity <= MAX_DISPARITY):
+        raise ValueError(f"zncc_sweep: odd 3 <= patch <= {MAX_PATCH} and "
+                         f"1 <= D <= {MAX_DISPARITY} required")
     H, W = left.shape
     N = yx.shape[0]
     out = torch.empty((N, max_disparity), dtype=torch.float32, device=left.device)

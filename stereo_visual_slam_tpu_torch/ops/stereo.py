@@ -43,9 +43,17 @@ def zncc_sweep(
     win = strip.unfold(2, p, 1).flip(2).permute(0, 2, 1, 3)
 
     eps = 1e-6
-    lp_m = lp - lp.mean(dim=(1, 2), keepdim=True)
+    # means as sum / n with n a tensor: on a CUDA tensor torch's mean(), and
+    # its division by a python number, multiply by 1 / n, which gives a flat
+    # 8-bit patch a uniform offset of ~1e-5 that then normalises to a
+    # constant (ZNCC ~0.98 between two flat patches). True division keeps
+    # flat patches at 0, as mean() does on the CPU (bit-equal there) and as
+    # the JAX reference does.
+    s = lp.sum(dim=(1, 2), keepdim=True)
+    lp_m = lp - s / torch.full_like(s, p * p)
     lp_n = lp_m / (torch.sqrt(torch.sum(lp_m * lp_m, dim=(1, 2), keepdim=True)) + eps)
-    win_m = win - win.mean(dim=(2, 3), keepdim=True)
+    s = win.sum(dim=(2, 3), keepdim=True)
+    win_m = win - s / torch.full_like(s, p * p)
     win_n = win_m / (torch.sqrt(torch.sum(win_m * win_m, dim=(2, 3), keepdim=True)) + eps)
     return torch.einsum("npq,ndpq->nd", lp_n, win_n)
 

@@ -31,10 +31,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from stereo_visual_slam_tpu_torch.shared import trajectory
-from stereo_visual_slam_tpu_torch.shared import Config
 from stereo_visual_slam_tpu_torch.models import slam_core
+from stereo_visual_slam_tpu_torch.pipeline import trajectory
 from stereo_visual_slam_tpu_torch.tracking.pnp import seeded_noise
+from stereo_visual_slam_tpu_torch.utils.config import Config
 
 NoiseFn = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stereo_visual_slam_tpu_torch.shared import Keyframe
+from stereo_visual_slam_tpu_torch.mapping.store import Keyframe
 from stereo_visual_slam_tpu_torch.models import vslam
 
 SNAPSHOT_VERSION = 1

@@ -1,7 +1,7 @@
 """The host-sequenced SLAM driver (port of pipeline/vo.py) — the
 reference-sequenced oracle that the chunked path is held against.
 
-The map (`MapStore`, shared with the JAX package) and the INIT -> TRACK ->
+The map (`MapStore`, the port's copy of the JAX package's) and the INIT -> TRACK ->
 LOST state machine live on the host; each frame is one call of the
 branchless `vslam.make_full_step` on the device:
 
@@ -40,11 +40,13 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from stereo_visual_slam_tpu_torch.shared import Config, Keyframe, MapStore, trajectory
 from stereo_visual_slam_tpu_torch.ba import schedule as ba_schedule
+from stereo_visual_slam_tpu_torch.mapping.store import Keyframe, MapStore
 from stereo_visual_slam_tpu_torch.models import frontend as frontend_mod
 from stereo_visual_slam_tpu_torch.models import vslam
+from stereo_visual_slam_tpu_torch.pipeline import trajectory
 from stereo_visual_slam_tpu_torch.tracking.pnp import seeded_noise
+from stereo_visual_slam_tpu_torch.utils.config import Config
 
 # columns of the per-frame host table: yx (2), valid, lm_id, lm_pos (3),
 # lm_reliable, upgrade

@@ -71,16 +71,17 @@ def main(argv=None):
 
     import numpy as np
 
-    from stereo_visual_slam_tpu_torch.shared import Config, viz
+    from stereo_visual_slam_tpu_torch.pipeline import viz
+    from stereo_visual_slam_tpu_torch.utils.config import Config
 
     base = Config()
     if args.params:
-        from stereo_visual_slam_tpu_torch.shared import config_from_yaml
+        from stereo_visual_slam_tpu_torch.utils import config_io
 
-        base = config_from_yaml(args.params, base)
+        base = config_io.config_from_yaml(args.params, base)
     gt = None
     if args.synthetic:
-        from stereo_visual_slam_tpu_torch.shared import synthetic
+        from stereo_visual_slam_tpu_torch.data import synthetic
 
         cfg = base
         world = synthetic.make_world(
@@ -91,7 +92,7 @@ def main(argv=None):
         n_frames = args.synthetic
         gt = world.poses_T_c_w
     elif args.dataset:
-        from stereo_visual_slam_tpu_torch.shared import kitti
+        from stereo_visual_slam_tpu_torch.data import kitti
 
         seq = kitti.open_sequence(args.dataset, args.sequence)
         cfg = kitti.config_for(seq, base)
@@ -111,7 +112,7 @@ def main(argv=None):
           f"in {wall:.1f}s ({n_done / max(wall, 1e-9):.2f} fps on {slam.device})")
 
     if gt is not None and len(slam.estimates) > 2:
-        from stereo_visual_slam_tpu_torch.shared import trajectory as traj_mod
+        from stereo_visual_slam_tpu_torch.pipeline import trajectory as traj_mod
 
         fids = sorted(k for k in slam.estimates if k < len(gt))
         est = np.stack([slam.estimates[f] for f in fids])
@@ -145,7 +146,7 @@ def _bounded(source, n_frames):
 
 def _run_chunked(args, cfg, source, n_frames, recorder):
     """The production path: the chunked SLAM core."""
-    from stereo_visual_slam_tpu_torch.shared import viz
+    from stereo_visual_slam_tpu_torch.pipeline import viz
     from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
 
     if args.no_ba:

@@ -15,7 +15,7 @@ from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam as JaxSlam
 from stereo_visual_slam_tpu_torch.models import slam_core
 from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam as TorchSlam
 
-from test_torch_slice import assert_same_run, jax_noise, slice_config
+from test_torch_slice import assert_same_run, jax_noise, slice_configs
 
 N_FRAMES = 14   # not a multiple of the chunk: the tail chunk is partial
 CHUNK = 4
@@ -23,13 +23,13 @@ CHUNK = 4
 
 @pytest.fixture(scope="module")
 def setup():
-    cfg = slice_config(1)
-    world = synthetic.make_world(cfg, n_frames=N_FRAMES, n_points=1500, seed=1)
+    jcfg, cfg = slice_configs(1)
+    world = synthetic.make_world(jcfg, n_frames=N_FRAMES, n_points=1500, seed=1)
     frames = list(synthetic.frames(world))
     streamed = TorchSlam(cfg, chunk=CHUNK, device="cpu")
     streamed.run(frames, stage=False)
     streamed.finish()
-    return cfg, frames, streamed
+    return (jcfg, cfg), frames, streamed
 
 
 def assert_identical(a, b):
@@ -64,7 +64,7 @@ def _rolling(slam, frames, window):
 
 @pytest.mark.parametrize("mode", ["staged", "rolling2", "rolling1"])
 def test_dataset_modes_equal_streaming(setup, mode):
-    cfg, frames, streamed = setup
+    (_, cfg), frames, streamed = setup
     slam = TorchSlam(cfg, chunk=CHUNK, device="cpu")
     if mode == "staged":
         staged = slam.stage(frames)
@@ -80,7 +80,7 @@ def test_dataset_modes_equal_streaming(setup, mode):
 
 def test_run_rolling_pulls_frames_lazily(setup):
     """At most window_chunks chunks are staged ahead of the dispatch."""
-    cfg, frames, _ = setup
+    (_, cfg), frames, _ = setup
     slam = TorchSlam(cfg, chunk=CHUNK, device="cpu")
     pulled = []
 
@@ -97,7 +97,7 @@ def test_run_rolling_pulls_frames_lazily(setup):
 
 
 def test_close_stops_feeding(setup):
-    cfg, frames, _ = setup
+    (_, cfg), frames, _ = setup
     slam = TorchSlam(cfg, chunk=CHUNK, device="cpu")
     for f, left, right in frames[:6]:
         slam.process(f, left, right)
@@ -108,7 +108,7 @@ def test_close_stops_feeding(setup):
 
 
 def test_eager_depth_chunk_path_equals_lazy(setup):
-    cfg, frames, streamed = setup
+    (_, cfg), frames, streamed = setup
     eager_cfg = cfg.replace(frontend=dataclasses.replace(cfg.frontend, lazy_depth=False))
     slam = TorchSlam(eager_cfg, chunk=CHUNK, device="cpu")
     assert slam.chunk_step.depth_fn is None
@@ -118,11 +118,11 @@ def test_eager_depth_chunk_path_equals_lazy(setup):
 
 
 def test_map_view_matches_jax(setup):
-    cfg, frames, _ = setup
-    j = JaxSlam(cfg, chunk=CHUNK)
+    (jcfg, tcfg), frames, _ = setup
+    j = JaxSlam(jcfg, chunk=CHUNK)
     j.run(frames)
     j.finish()
-    t = TorchSlam(cfg, chunk=CHUNK, device="cpu", noise_fn=jax_noise(cfg))
+    t = TorchSlam(tcfg, chunk=CHUNK, device="cpu", noise_fn=jax_noise(jcfg))
     t.run(frames)
     t.finish()
     assert_same_run(j, t)

@@ -10,11 +10,11 @@ import os
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu.data import synthetic
-from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
-from stereo_visual_slam_tpu.utils import config_io
-from stereo_visual_slam_tpu.utils.config import small_config
 from stereo_visual_slam_tpu_torch import run_vslam
+from stereo_visual_slam_tpu_torch.data import synthetic
+from stereo_visual_slam_tpu_torch.pipeline import trajectory as traj_mod
+from stereo_visual_slam_tpu_torch.utils import config_io
+from stereo_visual_slam_tpu_torch.utils.config import small_config
 
 N = 8
 

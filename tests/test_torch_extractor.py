@@ -15,8 +15,9 @@ import torch
 
 from stereo_visual_slam_tpu.data import synthetic
 from stereo_visual_slam_tpu.models import frontend as jfe
-from stereo_visual_slam_tpu.utils.config import small_config
+from stereo_visual_slam_tpu.utils import config as jax_config
 from stereo_visual_slam_tpu_torch.models import frontend as tfe
+from stereo_visual_slam_tpu_torch.utils import config as port_config
 
 # the suite runs in several pytest-xdist workers on a few cores: one
 # intra-op thread per process keeps the many small torch ops from
@@ -28,17 +29,17 @@ B = 4
 
 @pytest.fixture(scope="module")
 def extracted():
-    cfg = small_config()
-    world = synthetic.make_world(cfg, n_frames=B, n_points=1500, seed=0)
+    jcfg, cfg = jax_config.small_config(), port_config.small_config()
+    world = synthetic.make_world(jcfg, n_frames=B, n_points=1500, seed=0)
     H, W = cfg.padded_hw
     h, w = cfg.image_hw
     imgs = np.zeros((B, 2, H, W), np.uint8)
     for i, (_, left, right) in enumerate(synthetic.frames(world)):
         imgs[i, 0, :h, :w] = left
         imgs[i, 1, :h, :w] = right
-    fj = jfe.make_batch_extractor(cfg, with_depth=False)(jnp.asarray(imgs))
+    fj = jfe.make_batch_extractor(jcfg, with_depth=False)(jnp.asarray(imgs))
     ft = tfe.make_batch_extractor(cfg, "cpu", with_depth=False)(torch.from_numpy(imgs))
-    return cfg, imgs, jax.tree.map(np.asarray, fj), ft
+    return (jcfg, cfg), imgs, jax.tree.map(np.asarray, fj), ft
 
 
 def _level0_rows(cfg):
@@ -46,13 +47,13 @@ def _level0_rows(cfg):
 
 
 def test_level_geometry_identical():
-    cfg = small_config()
-    assert tfe._level_geometry(cfg) == jfe._level_geometry(cfg)
+    assert tfe._level_geometry(port_config.small_config()) == \
+        jfe._level_geometry(jax_config.small_config())
 
 
 @pytest.mark.parametrize("field", ["yx", "score", "valid", "packed", "signs", "scale"])
 def test_level0_rows_bit_exact(extracted, field):
-    cfg, _, fj, ft = extracted
+    (_, cfg), _, fj, ft = extracted
     n0 = _level0_rows(cfg)
     a = getattr(fj, field)[:, :n0]
     b = getattr(ft, field)[:, :n0].numpy()
@@ -69,7 +70,7 @@ def test_spawn_mask_exact(extracted):
 
 
 def test_coarse_levels_rows_identical(extracted):
-    cfg, _, fj, ft = extracted
+    (_, cfg), _, fj, ft = extracted
     n0 = _level0_rows(cfg)
     same = np.ones(fj.score[:, n0:].shape, bool)
     for field in ("yx", "score", "valid", "packed"):
@@ -83,9 +84,9 @@ def test_coarse_levels_rows_identical(extracted):
 
 
 def test_depth_stage_matches(extracted):
-    cfg, imgs, fj, ft = extracted
-    ds_j = jfe.make_depth_stage(cfg)
-    ds_t = tfe.make_depth_stage(cfg)
+    (jcfg, tcfg), imgs, fj, ft = extracted
+    ds_j = jfe.make_depth_stage(jcfg)
+    ds_t = tfe.make_depth_stage(tcfg)
     n_valid = 0
     for i in range(B):
         dj = ds_j(jnp.asarray(imgs[i]), jax.tree.map(lambda x: jnp.asarray(x[i]), fj))

@@ -27,7 +27,7 @@ from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam as JaxSlam
 from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam as TorchSlam
 from stereo_visual_slam_tpu_torch.pipeline.vo import VisualOdometry as TorchVO
 
-from test_torch_slice import jax_noise, slice_config
+from test_torch_slice import CONFIGS, jax_noise, slice_config
 from test_torch_vo import jax_vo, jax_vo_noise
 
 N_FRAMES = 16
@@ -35,8 +35,8 @@ GARBAGE_AT = 8
 GAP_SPAN = (6, 7, 8)
 
 
-def failure_config():
-    cfg = slice_config(3)
+def failure_config(config):
+    cfg = slice_config(config, 3)
     return cfg.replace(ba=dataclasses.replace(cfg.ba, max_landmarks=2048))
 
 
@@ -61,16 +61,16 @@ def sequence(frames, kind, max_lost):
 @pytest.fixture(scope="module")
 def runs():
     """kind -> {driver: finished driver}, each sequence run once per driver."""
-    cfg = failure_config()
-    world = synthetic.make_world(cfg, n_frames=N_FRAMES, n_points=1500, seed=0)
+    jcfg, cfg = (failure_config(c) for c in CONFIGS)
+    world = synthetic.make_world(jcfg, n_frames=N_FRAMES, n_points=1500, seed=0)
     frames = list(synthetic.frames(world))
-    noise_chunked, noise_host = jax_noise(cfg), jax_vo_noise(cfg, N_FRAMES)
+    noise_chunked, noise_host = jax_noise(jcfg), jax_vo_noise(jcfg, N_FRAMES)
     out, jax_host = {}, None
     for kind in ("reject", "gap", "lost"):
         seq = sequence(frames, kind, cfg.keyframe.max_lost)
-        jax_host = jax_vo(cfg, like=jax_host)
+        jax_host = jax_vo(jcfg, like=jax_host)
         drivers = dict(
-            jax_chunked=JaxSlam(cfg, chunk=4),
+            jax_chunked=JaxSlam(jcfg, chunk=4),
             torch_chunked=TorchSlam(cfg, chunk=4, device="cpu", noise_fn=noise_chunked),
             jax_host=jax_host,
             torch_host=TorchVO(cfg, device="cpu", noise_fn=noise_host),

@@ -1,5 +1,7 @@
-"""The CUDA kernels against their plain torch versions at small shapes,
-and both drivers on the card against the CPU on a small slice (the host
+"""The CUDA kernels against their plain torch versions, at small shapes,
+at the production shapes (every pyramid level, both ZNCC callers) and on
+the images that stress them (borders, plateaus, flat patches, thresholds
+that pass every pixel or none through FAST's early reject); and both drivers on the card against the CPU on a small slice (the host
 driver also under lookahead, through its pinned upload ring).
 They need a CUDA card (and nvcc to build the kernels): marked `cuda`, they
 skip without one. On the card, where jax is not installed (tests/conftest.py
@@ -34,7 +36,25 @@ def _image(seed, h, w):
     return torch.from_numpy(img)
 
 
-@pytest.mark.parametrize("hw", [(256, 256), (131, 97), (8, 33)])
+@pytest.fixture(scope="module")
+def production():
+    """The three kernels' inputs at the main path's shapes, from the first
+    chunk of the production synthetic world."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereo_visual_slam_tpu_torch.ops.kernels import measure
+
+    cfg, frames = measure.production_frames()
+    return cfg, measure.kernel_inputs(cfg, frames, torch.device("cuda"))
+
+
+# Small images take 128 x 8 tiles, (1056, 1283) takes 128 x 16 (the
+# production levels take both). (256, 256) is whole tiles; (131, 97),
+# (13, 130) and (1056, 1283) are not (rows of 97, 130 and 1283 floats take
+# the scalar halo load); (20, 200) has rows a multiple of 4 floats but not
+# of the tile width; 8 and 13 rows are at most two tiles, one partial.
+@pytest.mark.parametrize("hw", [(256, 256), (131, 97), (8, 33), (20, 200), (13, 130),
+                                (1056, 1283)])
 def test_fast_nms_bit_exact(dev, hw):
     img = _image(0, *hw).to(dev)
     reset_launch_counts()
@@ -42,6 +62,48 @@ def test_fast_nms_bit_exact(dev, hw):
     torch.cuda.synchronize()
     assert launch_counts()["fast_nms"] == 1
     assert torch.equal(out, fast_kernel.fast_nms_plain(img, 20.0))
+
+
+@pytest.mark.parametrize("batch", [8, 1])
+def test_fast_nms_production_levels(production, batch):
+    """All 8 pyramid levels of one chunk at B=8 (the chunk path) and B=1
+    (the host driver's single frame)."""
+    cfg, inp = production
+    H0 = cfg.padded_hw[0]
+    thr = cfg.frontend.fast_threshold
+    for img in inp["levels"]:
+        img = img[: img.shape[0] * batch // 8].contiguous()
+        assert torch.equal(fast_kernel.fast_nms_cuda(img, thr), fast_kernel.fast_nms_plain(img, thr))
+    assert inp["levels"][0].shape[0] == 8 * H0
+
+
+def _plateaus(seed, h, w):
+    """Integer image of 4 x 4 constant blocks at 4 levels 60 apart: flat
+    arcs and equal neighbouring scores, so NMS decides by raster order."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, 4, (h // 4, w // 4)) * 60.0
+    return torch.from_numpy(np.kron(blocks, np.ones((4, 4))).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["zeros", "plateaus"])
+def test_fast_nms_special_images(dev, kind):
+    img = torch.zeros((96, 384)) if kind == "zeros" else _plateaus(6, 96, 384)
+    img = img.to(dev)
+    out = fast_kernel.fast_nms_cuda(img, 20.0)
+    ref = fast_kernel.fast_nms_plain(img, 20.0)
+    assert torch.equal(out, ref)
+    if kind == "plateaus":
+        assert int((ref > 0).sum()) > 10
+
+
+@pytest.mark.parametrize("threshold", [0.0, 200.0])
+def test_fast_nms_thresholds(dev, threshold):
+    """Threshold 0 sends nearly every textured pixel to the full arc score,
+    200 almost none: both ends of the early reject."""
+    for img in (_image(7, 160, 512), _plateaus(8, 160, 512)):
+        img = img.to(dev)
+        assert torch.equal(fast_kernel.fast_nms_cuda(img, threshold),
+                           fast_kernel.fast_nms_plain(img, threshold))
 
 
 @pytest.mark.parametrize("frame_h", [None, 64])
@@ -74,6 +136,68 @@ def test_zncc_sweep_matches_plain(dev):
     assert torch.equal(a.valid, b.valid) and torch.equal(a.reliable, b.reliable)
 
 
+def _zncc_equal(left, right, yx, D, P=11):
+    out = stereo_kernel.zncc_sweep(left, right, yx, patch=P, max_disparity=D)
+    ref = stereo_kernel.zncc_sweep_plain(left, right, yx, patch=P, max_disparity=D)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (yx.shape[0], D)
+    if yx.shape[0]:
+        assert float((out - ref).abs().max()) <= 2e-5
+    kw = dict(fx=718.856, baseline=0.573, max_disparity=D, patch=P)
+    valid = torch.ones(yx.shape[0], dtype=torch.bool, device=left.device)
+    a = stereo_ops.match_disparity(left, right, yx, valid, use_kernel=True, **kw)
+    b = stereo_ops.match_disparity(left, right, yx, valid, use_kernel=False, **kw)
+    assert torch.equal(a.valid, b.valid) and torch.equal(a.reliable, b.reliable)
+    return ref
+
+
+@pytest.mark.parametrize("n", [0, 1, 2048, 16384])
+def test_zncc_sweep_production_sizes(production, n):
+    """N=2,048 on one (384, 1280) pair (keyframe branch, host driver) and
+    N=16,384 on the stacked (3072, 1280) pair with per-frame row offsets
+    (the eager chunk path); N=0 and 1 at the edges."""
+    cfg, inp = production
+    l, r, yx = inp["zncc"]["stacked" if n == 16384 else "single"]
+    reset_launch_counts()
+    _zncc_equal(l, r, yx[:n].contiguous(), cfg.frontend.max_disparity)
+    assert launch_counts()["zncc_sweep"] == (1 if n else 0) * 2
+
+
+@pytest.mark.parametrize("D", [32, 96])
+def test_zncc_sweep_borders(dev, D):
+    """Keypoints within D and the patch radius of every border, and beyond
+    it (clamped to the image)."""
+    H, W = 96, 384
+    left = _image(9, H, W)
+    right = torch.roll(left, -9, dims=1)
+    ys = [-2, 0, 1, 4, 5, 6, H // 2, H - 7, H - 6, H - 2, H - 1, H + 3]
+    xs = [-4, 0, 1, 5, 6, D - 2, D - 1, D, D + 5, W // 2, W - 7, W - 6, W - 2, W - 1, W + 2]
+    yx = torch.tensor([[y, x] for y in ys for x in xs], dtype=torch.int32)
+    _zncc_equal(left.to(dev), right.to(dev), yx.to(dev), D)
+
+
+@pytest.mark.parametrize("D", [32, 96])
+def test_zncc_sweep_flat_patches(dev, D):
+    """8-bit images with flat and near-flat regions (one gray level; one
+    gray level with +-1 noise) beside a strong edge: windows of zero and
+    tiny variance, whose statistics cancel worst. The noise makes every
+    near-flat window unique, so that the best disparity is not a tie that
+    rounding decides."""
+    rng = np.random.default_rng(10)
+    H, W = 64, 384
+    left = np.full((H, W), 128.0, np.float32)
+    left[:, 200:] = 20.0                                   # an edge
+    left[:, :200] += rng.integers(-1, 2, (H, 200))         # near-flat
+    left[:, 300:] = rng.integers(0, 256, (H, W - 300))     # texture
+    left[:16, :150] = 77.0                                 # exactly flat
+    left = torch.from_numpy(left)
+    right = torch.roll(left, -11, dims=1)
+    yx = np.stack([rng.integers(0, H, 600), rng.integers(0, W, 600)], -1)
+    yx = torch.from_numpy(yx.astype(np.int32))
+    ref = _zncc_equal(left.to(dev), right.to(dev), yx.to(dev), D)
+    assert bool((ref == 0).any())   # exactly flat windows score 0
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     img = torch.zeros((64, 64), device=dev)
     with pytest.raises(TypeError):
@@ -104,7 +228,8 @@ def test_small_slice_card_equals_cpu(dev):
     import dataclasses
 
     from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
-    from stereo_visual_slam_tpu_torch.shared import small_config, synthetic
+    from stereo_visual_slam_tpu_torch.data import synthetic
+    from stereo_visual_slam_tpu_torch.utils.config import small_config
     from stereo_visual_slam_tpu_torch.tracking.pnp import draw_noise
 
     cfg = small_config()
@@ -142,7 +267,8 @@ def test_small_slice_card_equals_cpu(dev):
 def _small_slice(n_frames, **keyframe):
     import dataclasses
 
-    from stereo_visual_slam_tpu_torch.shared import small_config, synthetic
+    from stereo_visual_slam_tpu_torch.data import synthetic
+    from stereo_visual_slam_tpu_torch.utils.config import small_config
 
     cfg = small_config()
     cfg = cfg.replace(camera=dataclasses.replace(cfg.camera, cx=128.0, cy=64.0),

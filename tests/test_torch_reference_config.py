@@ -18,33 +18,36 @@ import pytest
 from stereo_visual_slam_tpu.data import synthetic
 from stereo_visual_slam_tpu.pipeline import trajectory as traj_mod
 from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam as JaxSlam
-from stereo_visual_slam_tpu.utils.config import reference_ba_schedule
 from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam as TorchSlam
 
-from test_torch_slice import jax_noise, slice_config
+from test_torch_slice import CONFIGS, jax_noise, slice_config
 
 N_FRAMES = 14
 CHUNK = 7
 
 
-def reference_faithful(cfg):
+def reference_faithful(config, cfg):
     return cfg.replace(
         frontend=dataclasses.replace(cfg.frontend, steer_descriptor=True),
         matcher=dataclasses.replace(cfg.matcher, base_gate=30.0, margin=0.0, search_radius=1e6),
-        ba=dataclasses.replace(reference_ba_schedule(cfg.ba), fix_oldest_pose=False),
+        ba=dataclasses.replace(config.reference_ba_schedule(cfg.ba), fix_oldest_pose=False),
     )
+
+
+def reference_slice_config(config):
+    cfg = reference_faithful(config, slice_config(config, 3))
+    return cfg.replace(keyframe=dataclasses.replace(cfg.keyframe, window_size=4))
 
 
 @pytest.fixture(scope="module")
 def runs():
-    cfg = reference_faithful(slice_config(3))
-    cfg = cfg.replace(keyframe=dataclasses.replace(cfg.keyframe, window_size=4))
-    world = synthetic.make_world(cfg, n_frames=N_FRAMES, n_points=1500, seed=1)
+    jcfg, tcfg = (reference_slice_config(c) for c in CONFIGS)
+    world = synthetic.make_world(jcfg, n_frames=N_FRAMES, n_points=1500, seed=1)
     frames = list(synthetic.frames(world))
-    j = JaxSlam(cfg, chunk=CHUNK)
+    j = JaxSlam(jcfg, chunk=CHUNK)
     j.run(frames)
     j.finish()
-    t = TorchSlam(cfg, chunk=CHUNK, device="cpu", noise_fn=jax_noise(cfg))
+    t = TorchSlam(tcfg, chunk=CHUNK, device="cpu", noise_fn=jax_noise(jcfg))
     t.run(frames)
     t.finish()
     return world, j, t

@@ -26,9 +26,10 @@ import torch
 
 from stereo_visual_slam_tpu.data import synthetic
 from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam as JaxSlam
-from stereo_visual_slam_tpu.utils.config import small_config
+from stereo_visual_slam_tpu.utils import config as jax_config
 from stereo_visual_slam_tpu_torch.models import slam_core
 from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam as TorchSlam
+from stereo_visual_slam_tpu_torch.utils import config as port_config
 
 # the suite runs in several pytest-xdist workers on a few cores: one
 # intra-op thread per process keeps the many small torch ops from
@@ -39,12 +40,23 @@ N_FRAMES = 16
 CHUNK = 8
 
 
-def slice_config(n_levels):
-    cfg = small_config()
+# Each package gets its own config: the JAX functions the JAX package's
+# `Config` (jax.jit hashes it as a static argument), the port's functions the
+# port's copy, both built by the same calls from their own module.
+CONFIGS = (jax_config, port_config)
+
+
+def slice_config(config, n_levels):
+    cfg = config.small_config()
     return cfg.replace(
         frontend=dataclasses.replace(cfg.frontend, n_levels=n_levels),
         camera=dataclasses.replace(cfg.camera, cx=128.0, cy=64.0),
     )
+
+
+def slice_configs(n_levels):
+    """(the JAX package's config, the port's) of slice_config."""
+    return tuple(slice_config(c, n_levels) for c in CONFIGS)
 
 
 def jax_noise(cfg, seed=0):
@@ -81,17 +93,17 @@ def assert_same_run(j, t, first=0):
 
 @pytest.fixture(scope="module")
 def setup():
-    cfg = slice_config(1)
-    world = synthetic.make_world(cfg, n_frames=N_FRAMES, n_points=1500, seed=0)
+    jcfg, tcfg = slice_configs(1)
+    world = synthetic.make_world(jcfg, n_frames=N_FRAMES, n_points=1500, seed=0)
     frames = list(synthetic.frames(world))
-    ref = JaxSlam(cfg, chunk=CHUNK)
+    ref = JaxSlam(jcfg, chunk=CHUNK)
     ref.run(frames)
     ref.finish()
-    return cfg, frames, ref
+    return (jcfg, tcfg), frames, ref
 
 
 def test_strict_slice_matches_jax(setup, monkeypatch):
-    cfg, frames, ref = setup
+    (jcfg, tcfg), frames, ref = setup
     written = []
     real_set_rows = slam_core._set_rows
 
@@ -102,7 +114,7 @@ def test_strict_slice_matches_jax(setup, monkeypatch):
         return real_set_rows(arr, rows, vals, col)
 
     monkeypatch.setattr(slam_core, "_set_rows", checked_set_rows)
-    t = TorchSlam(cfg, chunk=CHUNK, device="cpu", noise_fn=jax_noise(cfg))
+    t = TorchSlam(tcfg, chunk=CHUNK, device="cpu", noise_fn=jax_noise(jcfg))
     t.run(frames)
     t.finish()
     assert not t.lost and not ref.lost
@@ -115,9 +127,9 @@ def test_strict_slice_matches_jax(setup, monkeypatch):
 
 
 def test_carry_across_jax_snapshot(setup, tmp_path):
-    cfg, frames, _ = setup
+    (jcfg, tcfg), frames, _ = setup
     path = str(tmp_path / "state.npz")
-    j = JaxSlam(cfg, chunk=CHUNK)
+    j = JaxSlam(jcfg, chunk=CHUNK)
     for f, left, right in frames[:8]:
         j.process(f, left, right)
     j.save_snapshot(path)
@@ -125,7 +137,7 @@ def test_carry_across_jax_snapshot(setup, tmp_path):
         j.process(f, left, right)
     j.finish()
 
-    t = TorchSlam(cfg, chunk=CHUNK, device="cpu", noise_fn=jax_noise(cfg))
+    t = TorchSlam(tcfg, chunk=CHUNK, device="cpu", noise_fn=jax_noise(jcfg))
     t.load_snapshot(path)
     for f, left, right in frames[8:]:
         t.process(f, left, right)
@@ -134,7 +146,7 @@ def test_carry_across_jax_snapshot(setup, tmp_path):
     # and the port's own snapshot round-trips the carry exactly
     path2 = str(tmp_path / "port.npz")
     t.save_snapshot(path2)
-    u = TorchSlam(cfg, chunk=CHUNK, device="cpu")
+    u = TorchSlam(tcfg, chunk=CHUNK, device="cpu")
     u.load_snapshot(path2)
     for a, b in zip(slam_core.carry_to_numpy(t.carry).values(),
                     slam_core.carry_to_numpy(u.carry).values()):
@@ -142,7 +154,7 @@ def test_carry_across_jax_snapshot(setup, tmp_path):
 
 
 def test_chunked_slam_needs_an_explicit_device():
-    cfg = slice_config(1)
+    cfg = slice_config(port_config, 1)
     with pytest.raises(TypeError):
         TorchSlam(cfg, chunk=CHUNK)
     if not torch.cuda.is_available():

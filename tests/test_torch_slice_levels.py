@@ -20,22 +20,22 @@ import numpy as np
 from stereo_visual_slam_tpu.data import synthetic
 from stereo_visual_slam_tpu.pipeline import trajectory as traj
 from stereo_visual_slam_tpu.pipeline.chunked import ChunkedSlam as JaxSlam
-from stereo_visual_slam_tpu.utils.config import small_config
 from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam as TorchSlam
-from test_torch_slice import jax_noise, slice_config
+from test_torch_slice import CONFIGS, jax_noise, slice_configs
 
 
 def _centres(est):
     return {f: -T[:3, :3].T @ T[:3, 3] for f, T in est.items()}
 
 
-def assert_tracks_jax(cfg, n_frames):
-    world = synthetic.make_world(cfg, n_frames=n_frames, n_points=1500, seed=0)
+def assert_tracks_jax(configs, n_frames):
+    jcfg, tcfg = configs
+    world = synthetic.make_world(jcfg, n_frames=n_frames, n_points=1500, seed=0)
     frames = list(synthetic.frames(world))
-    j = JaxSlam(cfg, chunk=8)
+    j = JaxSlam(jcfg, chunk=8)
     j.run(frames)
     j.finish()
-    t = TorchSlam(cfg, chunk=8, device="cpu", noise_fn=jax_noise(cfg))
+    t = TorchSlam(tcfg, chunk=8, device="cpu", noise_fn=jax_noise(jcfg))
     t.run(frames)
     t.finish()
 
@@ -61,10 +61,14 @@ def assert_tracks_jax(cfg, n_frames):
 
 
 def test_three_level_slice_tracks_jax():
-    assert assert_tracks_jax(slice_config(3), 24) >= 0.9 * 24
+    assert assert_tracks_jax(slice_configs(3), 24) >= 0.9 * 24
+
+
+def _one_level_small_config(config):
+    cfg = config.small_config()
+    return cfg.replace(frontend=dataclasses.replace(cfg.frontend, n_levels=1))
 
 
 def test_small_config_slice_tracks_jax():
-    cfg = small_config()
     # 12 of its 16 frames are tracked, in both packages
-    assert_tracks_jax(cfg.replace(frontend=dataclasses.replace(cfg.frontend, n_levels=1)), 16)
+    assert_tracks_jax(tuple(_one_level_small_config(c) for c in CONFIGS), 16)

@@ -25,10 +25,11 @@ from stereo_visual_slam_tpu.data import synthetic
 from stereo_visual_slam_tpu.models import frontend as jfe
 from stereo_visual_slam_tpu.ops import image as jimage
 from stereo_visual_slam_tpu.ops import orb as jorb
-from stereo_visual_slam_tpu.utils.config import small_config
+from stereo_visual_slam_tpu.utils import config as jax_config
 from stereo_visual_slam_tpu_torch.models import frontend as tfe
 from stereo_visual_slam_tpu_torch.ops import orb as torb
 from stereo_visual_slam_tpu_torch.ops.kernels import patch_kernel
+from stereo_visual_slam_tpu_torch.utils import config as port_config
 
 # the suite runs in several pytest-xdist workers on a few cores: one
 # intra-op thread per process keeps the many small torch ops from
@@ -38,15 +39,15 @@ torch.set_num_threads(1)
 N_KP = 2000
 
 
-def steer_config(steer):
-    cfg = small_config()
+def steer_config(config, steer):
+    cfg = config.small_config()
     return cfg.replace(frontend=dataclasses.replace(cfg.frontend, steer_descriptor=steer))
 
 
 @pytest.fixture(scope="module")
 def images():
     """(2, 2, H, W) uint8: two padded stereo frames."""
-    cfg = small_config()
+    cfg = jax_config.small_config()
     world = synthetic.make_world(cfg, n_frames=2, n_points=1500, seed=0)
     imgs = np.zeros((2, 2, *cfg.padded_hw), np.uint8)
     h, w = cfg.image_hw
@@ -100,9 +101,9 @@ def _level0_rows(cfg):
 
 @pytest.mark.parametrize("steer", [False, True])
 def test_single_frame_extractor_matches_jax(images, steer):
-    cfg = steer_config(steer)
+    cfg = steer_config(port_config, steer)
     n0 = _level0_rows(cfg)
-    jx = jfe.make_extractor(cfg)
+    jx = jfe.make_extractor(steer_config(jax_config, steer))
     tx = tfe.make_extractor(cfg, "cpu")
     same_rows = []
     for im in images:
@@ -149,7 +150,7 @@ def assert_same_features(x, y):
 @pytest.mark.parametrize("steer", [False, True])
 def test_eager_batch_extractor_equals_single_frame(images, steer):
     """The `lazy_depth=False` batch path == the per-frame extractor."""
-    cfg = steer_config(steer)
+    cfg = steer_config(port_config, steer)
     batch = tfe.make_batch_extractor(cfg, "cpu", with_depth=True)(torch.from_numpy(images))
     single = tfe.make_extractor(cfg, "cpu")
     for b, im in enumerate(images):
@@ -159,7 +160,7 @@ def test_eager_batch_extractor_equals_single_frame(images, steer):
 
 
 def test_lazy_depth_stage_equals_eager(images):
-    cfg = small_config()
+    cfg = port_config.small_config()
     eager = tfe.make_batch_extractor(cfg, "cpu", with_depth=True)(torch.from_numpy(images))
     lazy = tfe.make_batch_extractor(cfg, "cpu", with_depth=False)(torch.from_numpy(images))
     stage = tfe.make_depth_stage(cfg)

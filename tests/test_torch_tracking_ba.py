@@ -15,12 +15,13 @@ from stereo_visual_slam_tpu.ba import schur_lm as jlm
 from stereo_visual_slam_tpu.geom import se3 as jse3
 from stereo_visual_slam_tpu.ops import matcher as jmatcher
 from stereo_visual_slam_tpu.tracking import pnp as jpnp
-from stereo_visual_slam_tpu.utils.config import BAConfig
+from stereo_visual_slam_tpu.utils.config import BAConfig as JaxBAConfig
 from stereo_visual_slam_tpu_torch.ba import pose_only as tpo
 from stereo_visual_slam_tpu_torch.ba import schedule as tsched
 from stereo_visual_slam_tpu_torch.ba import schur_lm as tlm
 from stereo_visual_slam_tpu_torch.ops import matcher as tmatcher
 from stereo_visual_slam_tpu_torch.tracking import pnp as tpnp
+from stereo_visual_slam_tpu_torch.utils.config import BAConfig as PortBAConfig
 
 # the suite runs in several pytest-xdist workers on a few cores: one
 # intra-op thread per process keeps the many small torch ops from
@@ -161,8 +162,8 @@ def test_ba_schedule_matches():
     ji = jsched.ScheduleInput(**common, **{k: jnp.asarray(v) for k, v in masks.items()})
     ti = tsched.ScheduleInput(**{k: T(np.array(v)) for k, v in common.items()},
                               **{k: T(v) for k, v in masks.items()})
-    a = jsched.make_ba_schedule(BAConfig())(ji, jnp.asarray(K))
-    b = tsched.make_ba_schedule(BAConfig())(ti, T(K))
+    a = jsched.make_ba_schedule(JaxBAConfig())(ji, jnp.asarray(K))
+    b = tsched.make_ba_schedule(PortBAConfig())(ti, T(K))
     np.testing.assert_allclose(b.T_c_w.numpy(), np.asarray(a.T_c_w), atol=1e-4, rtol=0)
     np.testing.assert_array_equal(b.inlier.numpy(), np.asarray(a.inlier))
     np.testing.assert_allclose(float(b.cost_full), float(a.cost_full), rtol=1e-4)

@@ -36,7 +36,7 @@ from stereo_visual_slam_tpu_torch.models import vslam as tvslam
 from stereo_visual_slam_tpu_torch.pipeline import snapshot as tsnapshot
 from stereo_visual_slam_tpu_torch.pipeline.vo import VisualOdometry as TorchVO
 
-from test_torch_slice import slice_config
+from test_torch_slice import CONFIGS, slice_config, slice_configs
 
 # the suite runs in several pytest-xdist workers on a few cores: one
 # intra-op thread per process keeps the many small torch ops from
@@ -47,8 +47,8 @@ N_FRAMES = 16
 SPLIT_AT = 8
 
 
-def vo_config():
-    cfg = slice_config(1)
+def vo_config(config):
+    cfg = slice_config(config, 1)
     return cfg.replace(keyframe=dataclasses.replace(cfg.keyframe, min_inliers_skip=40,
                                                     window_size=4))
 
@@ -128,11 +128,11 @@ def assert_same_vo(j, t, first=0, from_start=True):
 
 @pytest.fixture(scope="module")
 def setup():
-    cfg = vo_config()
-    world = synthetic.make_world(cfg, n_frames=N_FRAMES, n_points=1500, seed=0)
+    jcfg, tcfg = (vo_config(c) for c in CONFIGS)
+    world = synthetic.make_world(jcfg, n_frames=N_FRAMES, n_points=1500, seed=0)
     frames = list(synthetic.frames(world))
-    ref = run(jax_vo(cfg), frames)
-    return cfg, frames, ref, jax_vo_noise(cfg, N_FRAMES)
+    ref = run(jax_vo(jcfg), frames)
+    return (jcfg, tcfg), frames, ref, jax_vo_noise(jcfg, N_FRAMES)
 
 
 def _features(cfg, frames, i):
@@ -145,11 +145,11 @@ def _features(cfg, frames, i):
 
 
 def test_keyframe_update_matches_jax(setup):
-    cfg, frames, ref, _ = setup
-    img = _features(cfg, frames, 0)
+    (jcfg, tcfg), frames, ref, _ = setup
+    img = _features(tcfg, frames, 0)
     fj = ref.extract(jnp.asarray(img[0], jnp.float32), jnp.asarray(img[1], jnp.float32))
-    ft = tfe.make_extractor(cfg, "cpu")(torch.from_numpy(img))
-    n = cfg.frontend.max_raw_keypoints
+    ft = tfe.make_extractor(tcfg, "cpu")(torch.from_numpy(img))
+    n = tcfg.frontend.max_raw_keypoints
     rng = np.random.default_rng(0)
     T = np.eye(4, dtype=np.float32)
     T[:3, 3] = [0.3, -0.1, 2.0]
@@ -161,7 +161,7 @@ def test_keyframe_update_matches_jax(setup):
         lm_reliable=rng.random(n) < 0.5,
         T_c_w=T, T_c_l=np.eye(4, dtype=np.float32),
     )
-    _, kfu_t = tvslam.make_tracker(cfg, "cpu")
+    _, kfu_t = tvslam.make_tracker(tcfg, "cpu")
     sj, nj, uj = ref.keyframe_update(
         jvslam.TrackState(**{k: jnp.asarray(v) for k, v in state.items()}), fj,
         jnp.asarray(777, jnp.int32))
@@ -179,22 +179,22 @@ def test_full_step_matches_jax(setup):
     """One step from frame 0 to frame 1 under the default keyframe rule,
     which makes frame 1 a keyframe."""
     _, frames, ref, noise = setup
-    cfg = slice_config(1)
-    img0, img1 = _features(cfg, frames, 0), _features(cfg, frames, 1)
+    jcfg, tcfg = slice_configs(1)
+    img0, img1 = _features(tcfg, frames, 0), _features(tcfg, frames, 1)
     # the JAX driver's state after initialising on frame 0
     fj0 = ref.extract(jnp.asarray(img0[0], jnp.float32), jnp.asarray(img0[1], jnp.float32))
     sj0, _, _ = ref.keyframe_update(
-        jvslam.empty_state(cfg)._replace(yx=fj0.yx, signs=fj0.signs), fj0,
+        jvslam.empty_state(jcfg)._replace(yx=fj0.yx, signs=fj0.signs), fj0,
         jnp.asarray(0, jnp.int32))
     key = jax.random.split(jax.random.PRNGKey(0))[1]
-    sj, ij, uj = jvslam.make_full_step(cfg, ref.extract)(jnp.asarray(img1), sj0, jnp.asarray(1.0, jnp.float32), key,
+    sj, ij, uj = jvslam.make_full_step(jcfg, ref.extract)(jnp.asarray(img1), sj0, jnp.asarray(1.0, jnp.float32), key,
                                jnp.asarray(128, jnp.int32))
 
-    extract = tfe.make_extractor(cfg, "cpu")
-    full_step = tvslam.make_full_step(cfg, extract, "cpu")
-    _, kfu = tvslam.make_tracker(cfg, "cpu")
+    extract = tfe.make_extractor(tcfg, "cpu")
+    full_step = tvslam.make_full_step(tcfg, extract, "cpu")
+    _, kfu = tvslam.make_tracker(tcfg, "cpu")
     f0 = extract(torch.from_numpy(img0))
-    st0, _, _ = kfu(tvslam.empty_state(cfg, "cpu")._replace(yx=f0.yx, signs=f0.signs), f0, 0)
+    st0, _, _ = kfu(tvslam.empty_state(tcfg, "cpu")._replace(yx=f0.yx, signs=f0.signs), f0, 0)
     g, tw = noise(1)
     st, it, ut = full_step(torch.from_numpy(img1), st0, torch.tensor(1.0), g, tw, 128)
 
@@ -212,9 +212,9 @@ def test_full_step_matches_jax(setup):
 
 @pytest.mark.parametrize("lookahead", [0, 1])
 def test_visual_odometry_matches_jax(setup, lookahead):
-    cfg, frames, ref, noise = setup
-    j = ref if lookahead == 0 else run(jax_vo(cfg, like=ref, lookahead=lookahead), frames)
-    t = run(TorchVO(cfg, lookahead=lookahead, device="cpu", noise_fn=noise), frames)
+    (jcfg, tcfg), frames, ref, noise = setup
+    j = ref if lookahead == 0 else run(jax_vo(jcfg, like=ref, lookahead=lookahead), frames)
+    t = run(TorchVO(tcfg, lookahead=lookahead, device="cpu", noise_fn=noise), frames)
     assert t.state.name == "TRACK"
     assert_same_vo(j, t)
     # one wait per collected frame, per BA result and for the first frame
@@ -224,7 +224,7 @@ def test_visual_odometry_matches_jax(setup, lookahead):
 
 
 def test_snapshot_resume_equals_uninterrupted(setup, tmp_path):
-    cfg, frames, _, _ = setup
+    (_, cfg), frames, _, _ = setup
     whole = run(TorchVO(cfg, device="cpu"), frames)
     a = TorchVO(cfg, device="cpu")
     for f, left, right in frames[:SPLIT_AT]:
@@ -247,17 +247,17 @@ def test_snapshot_resume_equals_uninterrupted(setup, tmp_path):
 
 
 def test_jax_snapshot_loads_into_port(setup, tmp_path):
-    cfg, frames, ref, noise = setup
-    j = jax_vo(cfg, like=ref)
+    (jcfg, tcfg), frames, ref, noise = setup
+    j = jax_vo(jcfg, like=ref)
     for f, left, right in frames[:SPLIT_AT]:
         j.process(f, left, right)
     path = str(tmp_path / "jax_vo.npz")
     jsnapshot.save_snapshot(j, path)
-    j = jax_vo(cfg, like=ref)
+    j = jax_vo(jcfg, like=ref)
     jsnapshot.load_snapshot(j, path)
     run(j, frames[SPLIT_AT:])
 
-    t = TorchVO(cfg, device="cpu", noise_fn=noise)
+    t = TorchVO(tcfg, device="cpu", noise_fn=noise)
     tsnapshot.load_snapshot(t, path)
     assert t.next_kf_id == int(np.load(path)["next_kf_id"]) and t.map.n_keyframes() > 1
     run(t, frames[SPLIT_AT:])
@@ -270,9 +270,9 @@ def test_keyframe_at_frame_1_keeps_landmarks_apart(setup):
     the reference reuses frame 0's ids there and merges them into old ones
     (a deliberate divergence, ROADMAP Queue C)."""
     _, frames, _, _ = setup
-    cfg = slice_config(1)
-    t = TorchVO(cfg, device="cpu", enable_ba=False)
-    j = JaxVO(cfg, enable_ba=False)
+    jcfg, tcfg = slice_configs(1)
+    t = TorchVO(tcfg, device="cpu", enable_ba=False)
+    j = JaxVO(jcfg, enable_ba=False)
     for vo in (t, j):
         for f, left, right in frames[:2]:
             vo.process(f, left, right)

@@ -25,8 +25,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from stereo_visual_slam_tpu_torch.data import synthetic  # noqa: E402
 from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam  # noqa: E402
-from stereo_visual_slam_tpu_torch.shared import Config, synthetic  # noqa: E402
+from stereo_visual_slam_tpu_torch.utils.config import Config  # noqa: E402
 
 
 def card() -> str:
