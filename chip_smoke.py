@@ -22,7 +22,19 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
   6. the reference-faithful configuration (steered BRIEF, the reference's
      matcher gates and BA schedule) on ChunkedSlam over the first 24
      frames, staged (stage/run_staged: every chunk on the card first):
-     not Lost, >= 23 tracked, BA ran, every kernel launched.
+     not Lost, >= 23 tracked, BA ran, every kernel launched;
+  7. mesh BA (utils/dist, parallel/dist_ba, the `mesh=` paths):
+     (a) phase 4's slice on a one-rank NCCL mesh (run_vslam
+         --mesh-devices 1's path): records, poses and the whole carry
+         bit-equal to phase 4's run;
+     (b) two ranks spawned on the one card over gloo (NCCL refuses two
+         ranks on one GPU): the BA schedule at the production window
+         (Kw=10, L=4,096) and the window-growth shapes (Kw=20, L=8,192)
+         against the card's single-device schedule (poses atol 2e-4,
+         inliers equal, full-BA cost rtol 1e-4), then the 64-frame slice
+         on both ranks: phase 4's gates, BA on the mesh, every frame within
+         5e-2 m of phase 4's, both ranks' carries bit-equal;
+     with the ms per BA run sharded and unsharded and each run's wall.
 Each path's kernel launches are counted from 0 just before it runs.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's `nvidia-smi` name and power limit, before that a JSON line with the
@@ -32,8 +44,11 @@ kernels' measurements and per-path launch counts.
 from __future__ import annotations
 
 import json
+import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +61,13 @@ REF_FRAMES = 24
 ZNCC_ATOL = 2e-5
 # the default profile's accuracy gates of the JAX benchmark (bench.py:45-49)
 DEFAULT_GATES = dict(trans=1.5, ate=2.0)
+MESH_RANKS = 2
+# the schedule's windows in phase 7: (Kw, L) of production and of the
+# window-growth test (tests/test_parallel.py::test_sharded_schedule_large_window)
+MESH_WINDOWS = ((10, 4096), (20, 8192))
+SCHEDULE_REPS = 5
+MESH_POSE_BOUND_M = 5e-2   # per frame, as tests/test_parallel.py
+MESH_TIMEOUT_S = 480       # phase 7(b) as a whole, both ranks
 
 
 def log(msg: str) -> None:
@@ -245,7 +267,7 @@ def run_slice(frames, world, cfg):
     if ate > DEFAULT_GATES["ate"] or t_err > DEFAULT_GATES["trans"]:
         raise AssertionError("the slice misses the accuracy gates")
     check_launches(launches, "slice")
-    return launches
+    return launches, slam
 
 
 def run_host(frames, world, cfg):
@@ -343,6 +365,247 @@ def run_reference(frames, world, cfg):
     return launches
 
 
+def make_window(cfg, nK, L, dev, seed=3):
+    """A driving window on the port: L landmarks ahead of nK keyframes on a
+    straight road, the observations with 0.5 px noise, the points with 5 cm
+    (the JAX package's tools/scaling_bench.make_window)."""
+    from stereo_visual_slam_tpu_torch.ba.schedule import ScheduleInput
+    from stereo_visual_slam_tpu_torch.geom import se3
+
+    cam = cfg.camera
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-20, 20, L), rng.uniform(-5, 5, L),
+                    rng.uniform(10, 80 + nK, L)], axis=-1).astype(np.float32)
+    T = se3.exp(torch.tensor([[0.02 * k, 0.0, -1.0 * k, 0.0, 0.004 * k, 0.0]
+                              for k in range(nK)], dtype=torch.float32)).numpy()
+    Xc = np.einsum("kij,lj->lki", T[:, :3, :3], pts) + T[:, :3, 3][None]
+    z = np.maximum(Xc[..., 2], 1e-3)
+    uv = np.stack([cam.fx * Xc[..., 0] / z + cam.cx, cam.fy * Xc[..., 1] / z + cam.cy],
+                  axis=-1).astype(np.float32)
+    uv += rng.normal(0, 0.5, uv.shape).astype(np.float32)
+    ones = np.ones(L, np.float32)
+    fixed = np.zeros(nK, np.float32)
+    fixed[0] = 1.0
+    arrays = dict(T_c_w=T, points=pts + rng.normal(0, 0.05, pts.shape).astype(np.float32),
+                  uv=uv, obs_mask=(Xc[..., 2] > 1.0).astype(np.float32), inlier=ones,
+                  reliable=ones, present=ones, pose_mask=np.ones(nK, np.float32),
+                  fixed_pose=fixed)
+    K = torch.tensor([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]], dtype=torch.float32)
+    return ScheduleInput(**{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}), K.to(dev)
+
+
+def compare_schedules(cfg, mesh, dev, exact):
+    """The BA schedule on `mesh` against the single-device schedule at each
+    window of MESH_WINDOWS: the gap, and each one's median ms per run over
+    SCHEDULE_REPS runs taken in turns. `exact`: bit-equal required."""
+    from stereo_visual_slam_tpu_torch.ba import schedule as ba_schedule
+
+    single = ba_schedule.make_ba_schedule(cfg.ba)
+    sharded = ba_schedule.make_ba_schedule(cfg.ba, mesh=mesh)
+    out = {}
+    for nK, L in MESH_WINDOWS:
+        inp, K = make_window(cfg, nK, L, dev)
+        a, b = single(inp, K), sharded(inp, K)   # also the warm-up
+        sync()
+        t_err = float((a.T_c_w - b.T_c_w).abs().max())
+        same_inlier = bool(torch.equal(a.inlier, b.inlier))
+        cost_rel = abs(float(a.cost_full) - float(b.cost_full)) / abs(float(a.cost_full))
+        if exact:
+            ok = all(torch.equal(x, y) for x, y in zip(a, b))
+        else:
+            ok = t_err <= 2e-4 and same_inlier and cost_rel <= 1e-4
+        times = {"single": [], "sharded": []}
+        for i in range(SCHEDULE_REPS):
+            for name in (("single", "sharded") if i % 2 == 0 else ("sharded", "single")):
+                run = single if name == "single" else sharded
+                sync()
+                t0 = time.perf_counter()
+                run(inp, K)
+                sync()
+                times[name].append(1e3 * (time.perf_counter() - t0))
+        out[f"Kw{nK}_L{L}"] = dict(
+            ok=ok, pose_max_abs_err=t_err, inlier_equal=same_inlier, cost_full_rel_err=cost_rel,
+            n_inlier=int(a.inlier.sum()), ms_single=float(np.median(times["single"])),
+            ms_sharded=float(np.median(times["sharded"])))
+    return out
+
+
+def same_run(a, b):
+    """What differs between two ChunkedSlam runs: the per-frame records,
+    the poses or any array of the final carry (empty: bit-equal)."""
+    from stereo_visual_slam_tpu_torch.models import slam_core
+
+    diff = []
+    if a.stats != b.stats:
+        diff.append("records")
+    if sorted(a.estimates) != sorted(b.estimates) or not all(
+            np.array_equal(a.estimates[f], b.estimates[f]) for f in a.estimates):
+        diff.append("poses")
+    ca, cb = slam_core.carry_to_numpy(a.carry), slam_core.carry_to_numpy(b.carry)
+    diff += [k for k in ca if not np.array_equal(ca[k], cb[k])]
+    return diff
+
+
+def run_mesh_one_rank(frames, cfg, ref, dev):
+    """Phase 7(a): phase 4's slice on a one-rank NCCL mesh, bit-equal to
+    phase 4's run (`ref`)."""
+    import torch.distributed as dist
+
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
+    from stereo_visual_slam_tpu_torch.utils import dist as dist_utils
+
+    dist_utils.initialize_distributed(world_size=1, rank=0, device=dev)
+    try:
+        if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+            raise AssertionError(f"phase 7(a): backend {dist.get_backend()}, not nccl")
+        mesh = dist_utils.make_landmark_mesh(1)
+        schedules = compare_schedules(cfg, mesh, dev, exact=True)
+        slam = ChunkedSlam(cfg, chunk=CHUNK, device=dev, mesh=mesh)
+        kernels.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        slam.run(frames, stage=False)
+        slam.finish()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        dist_utils.shutdown()
+    n_ba = sum(1 for s in slam.stats if s["ba_cost"] is not None)
+    diff = same_run(slam, ref)
+    for name, r in schedules.items():
+        log(f"mesh (a) NCCL, 1 rank: schedule {name}: {r['ms_sharded']:.3f} ms per BA run "
+            f"on the mesh, {r['ms_single']:.3f} ms unsharded; bit-equal {r['ok']}")
+    log(f"mesh (a) NCCL, 1 rank: {len(slam.stats)} frames in {wall:.3f} s, BA runs {n_ba}, "
+        f"syncs/frame {slam.syncs / len(slam.stats):.3f}; differs from phase 4 in: "
+        f"{diff or 'nothing'}; launches {launches}")
+    if diff or not all(r["ok"] for r in schedules.values()):
+        raise AssertionError("phase 7(a): the one-rank mesh is not bit-equal to no mesh")
+    if n_ba < 1:
+        raise AssertionError("phase 7(a): BA never ran")
+    check_launches(launches, "mesh (a)")
+    return launches, dict(wall_s=wall, schedules=schedules)
+
+
+def mesh_rank(rank, n, port, tmp, cfg, dev):
+    """One rank of phase 7(b), in a spawned process (which imports this
+    file as __mp_main__: nothing runs at import)."""
+    from stereo_visual_slam_tpu_torch.models import slam_core
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.pipeline import trajectory as traj
+    from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
+    from stereo_visual_slam_tpu_torch.utils import dist as dist_utils
+
+    dist_utils.initialize_distributed("127.0.0.1", n, rank, master_port=port, device=dev,
+                                      backend="gloo")
+    try:
+        mesh = dist_utils.make_landmark_mesh(n)
+        out = {"schedules": compare_schedules(cfg, mesh, dev, exact=False)}
+        with np.load(os.path.join(tmp, "inputs.npz")) as z:
+            z = dict(z)
+        frames = list(zip(z["fids"].tolist(), z["left"], z["right"]))
+        warm = ChunkedSlam(cfg, chunk=CHUNK, device=dev, mesh=mesh)
+        warm.run(frames[:CHUNK], stage=False)
+        slam = ChunkedSlam(cfg, chunk=CHUNK, device=dev, mesh=mesh)
+        kernels.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        slam.run(frames, stage=False)
+        slam.finish()
+        sync()
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = kernels.launch_counts()
+        fids = sorted(slam.estimates)
+        est = np.stack([slam.estimates[f] for f in fids])
+        ref = dict(zip(z["ref_fids"].tolist(), z["ref_T"]))
+        gaps = [float(np.linalg.norm(np.linalg.inv(slam.estimates[f])[:3, 3]
+                                     - np.linalg.inv(ref[f])[:3, 3])) for f in fids if f in ref]
+        out.update(
+            n=len(slam.stats), lost=slam.lost, syncs=slam.syncs, n_compared=len(gaps),
+            tracked=sum(1 for s in slam.stats if s["state"] == "tracked"),
+            n_ba=sum(1 for s in slam.stats if s["ba_cost"] is not None),
+            max_gap_m=max(gaps), finite=bool(np.isfinite(est).all()),
+            ate=traj.ate_rmse(est, z["gt"][fids]),
+            trans=traj.kitti_errors(est, z["gt"][fids])[0])
+        np.savez(os.path.join(tmp, f"carry{rank}.npz"), **slam_core.carry_to_numpy(slam.carry))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist_utils.shutdown()
+
+
+def run_mesh_two_ranks(frames, world, cfg, ref, dev):
+    """Phase 7(b): MESH_RANKS ranks spawned on the one card over gloo."""
+    import multiprocessing
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fids = sorted(ref.estimates)
+        np.savez(os.path.join(tmp, "inputs.npz"), fids=np.array([f for f, _, _ in frames]),
+                 left=np.stack([lf for _, lf, _ in frames]), right=np.stack([r for _, _, r in frames]),
+                 gt=world.poses_T_c_w, ref_fids=np.array(fids),
+                 ref_T=np.stack([ref.estimates[f] for f in fids]))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank, args=(r, MESH_RANKS, port, tmp, cfg, dev))
+                 for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            while any(p.is_alive() for p in procs):
+                failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if failed or time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    raise AssertionError(f"phase 7(b): rank exit codes {[p.exitcode for p in procs]} "
+                                         f"after {time.perf_counter() - t0:.0f} s")
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"phase 7(b): rank exit codes {[p.exitcode for p in procs]}")
+        results = []
+        carries = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+            with np.load(os.path.join(tmp, f"carry{r}.npz")) as z:
+                carries.append(dict(z))
+    unequal = [k for k in carries[0] if any(not np.array_equal(c[k], carries[0][k])
+                                            for c in carries[1:])]
+    for r, res in enumerate(results):
+        for name, sc in res["schedules"].items():
+            log(f"mesh (b) gloo, rank {r} of {MESH_RANKS} on one card: schedule {name}: "
+                f"{sc['ms_sharded']:.3f} ms per BA run on the mesh, {sc['ms_single']:.3f} ms "
+                f"unsharded; pose max |err| {sc['pose_max_abs_err']:.3g}, inliers equal "
+                f"{sc['inlier_equal']} ({sc['n_inlier']}), cost rel err {sc['cost_full_rel_err']:.3g}")
+        log(f"mesh (b) gloo, rank {r}: {res['n']} frames in {res['wall_s']:.3f} s; tracked "
+            f"{res['tracked']}, BA runs {res['n_ba']}, lost {res['lost']}; ATE {res['ate']:.3f} m, "
+            f"KITTI trans {res['trans']:.3f} %; max gap to phase 4 {res['max_gap_m']:.3g} m over "
+            f"{res['n_compared']} frames; syncs/frame {res['syncs'] / res['n']:.3f}; "
+            f"launches {res['launches']}")
+    log(f"mesh (b): ranks' final carries differ in: {unequal or 'nothing'}")
+    for r, res in enumerate(results):
+        if not all(sc["ok"] for sc in res["schedules"].values()):
+            raise AssertionError(f"phase 7(b) rank {r}: the sharded schedule misses its tolerances")
+        if res["lost"] or res["n"] != FRAMES or res["tracked"] < 0.9 * res["n"]:
+            raise AssertionError(f"phase 7(b) rank {r}: lost or tracked {res['tracked']} of {res['n']}")
+        if res["n_ba"] < 1:
+            raise AssertionError(f"phase 7(b) rank {r}: BA never ran on the mesh")
+        if not res["finite"] or res["ate"] > DEFAULT_GATES["ate"] or res["trans"] > DEFAULT_GATES["trans"]:
+            raise AssertionError(f"phase 7(b) rank {r}: misses the accuracy gates")
+        if res["n_compared"] < 0.9 * FRAMES or res["max_gap_m"] > MESH_POSE_BOUND_M:
+            raise AssertionError(f"phase 7(b) rank {r}: {res['max_gap_m']} m from phase 4")
+        check_launches(res["launches"], f"mesh (b) rank {r}")
+    if unequal:
+        raise AssertionError(f"phase 7(b): the ranks' carries differ in {unequal}")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -367,9 +630,23 @@ def main() -> int:
     log(f"render: {FRAMES} frames in {time.perf_counter() - t0:.1f} s")
 
     measured = check_kernels(cfg, frames, dev)
-    launches = {"chunked": run_slice(frames, world, cfg)}
+    launches = {}
+    launches["chunked"], slice_run = run_slice(frames, world, cfg)
     launches["host"], host_rates = run_host(frames, world, cfg)
     launches["reference_config"] = run_reference(frames, world, cfg)
+    launches["mesh_nccl_1"], mesh_one = run_mesh_one_rank(frames, cfg, slice_run, dev)
+    mesh_two = run_mesh_two_ranks(frames, world, cfg, slice_run, dev)
+    for r, res in enumerate(mesh_two):
+        launches[f"mesh_gloo_{MESH_RANKS}_rank{r}"] = res["launches"]
+    timing = "; ".join(
+        [f"(a) NCCL 1 rank: slice wall {mesh_one['wall_s']:.3f} s"]
+        + [f"(a) {k} {v['ms_sharded']:.3f} ms sharded / {v['ms_single']:.3f} ms unsharded"
+           for k, v in mesh_one["schedules"].items()]
+        + [f"(b) gloo rank {r} of {MESH_RANKS} on one card: slice wall {res['wall_s']:.3f} s, "
+           + ", ".join(f"{k} {v['ms_sharded']:.3f} ms sharded / {v['ms_single']:.3f} ms unsharded"
+                       for k, v in res["schedules"].items())
+           for r, res in enumerate(mesh_two)])
+    log(f"mesh BA per BA run and slice walls, on {card}: {timing}")
 
     src = {"fast_nms": ("stereo_visual_slam_tpu_torch/csrc/fast_nms.cu",
                         "stereo_visual_slam_tpu/ops/pallas/fast_kernel.py:96"),
@@ -387,6 +664,7 @@ def main() -> int:
                              "brief_bit_flips", "steered_bit_flips", "brief_bits")}))
     g = measured["gather_patches"]
     print(json.dumps({"kernels": rows, "host_driver": host_rates,
+                      "mesh": {"nccl_1_rank": mesh_one, f"gloo_{MESH_RANKS}_ranks": mesh_two},
                       "brief_bit_flips": [g["brief_bit_flips"], g["brief_bits"]],
                       "steered_bit_flips": [g["steered_bit_flips"], g["brief_bits"]]}))
     print(card)

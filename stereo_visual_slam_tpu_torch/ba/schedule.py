@@ -1,6 +1,11 @@
-"""The per-keyframe BA schedule (port of ba/schedule.py, single device):
-classify passes, full BA (poses kept, landmarks not), pose-only
-refinement, with the inlier set flowing from pass to pass."""
+"""The per-keyframe BA schedule (port of ba/schedule.py): classify passes,
+full BA (poses kept, landmarks not), pose-only refinement, with the inlier
+set flowing from pass to pass.
+
+With `mesh` (the JAX shard_map path), each rank runs the three passes on
+its landmark rows of the window, the sums go over the mesh (ba/schur_lm,
+ba/pose_only), and the full (L,) inlier verdicts are assembled on every
+rank; poses and costs are replicated."""
 
 from __future__ import annotations
 
@@ -27,6 +32,10 @@ class ScheduleInput(NamedTuple):
     fixed_pose: torch.Tensor  # (K,)
 
 
+# the fields with a landmark axis (JAX in_specs P(LM_AXIS))
+LANDMARK_FIELDS = ("points", "uv", "obs_mask", "inlier", "reliable", "present")
+
+
 class ScheduleResult(NamedTuple):
     T_c_w: torch.Tensor      # (K, 4, 4) optimized poses
     inlier: torch.Tensor     # (L,) final is_inlier verdicts
@@ -35,9 +44,10 @@ class ScheduleResult(NamedTuple):
     threshold: torch.Tensor  # () final adaptive chi2 threshold
 
 
-def make_ba_schedule(cfg: BAConfig):
+def make_ba_schedule(cfg: BAConfig, mesh=None):
     """The schedule closed over the static BA config:
-    run(inp: ScheduleInput, K) -> ScheduleResult."""
+    run(inp: ScheduleInput, K) -> ScheduleResult. With `mesh`, every rank
+    passes the whole window and gets the whole result."""
     common = dict(
         huber_delta=cfg.huber_delta,
         chi2_threshold=cfg.chi2_threshold,
@@ -47,9 +57,12 @@ def make_ba_schedule(cfg: BAConfig):
         lambda_up=cfg.lm_lambda_up,
         lambda_down=cfg.lm_lambda_down,
         rel_tol=cfg.rel_tol,
+        mesh=mesh,
     )
 
     def run(inp: ScheduleInput, K: torch.Tensor) -> ScheduleResult:
+        if mesh is not None:
+            inp = mesh.shard(inp, LANDMARK_FIELDS)
         inlier = inp.inlier * inp.present
 
         def problem(point_mask, T):
@@ -79,6 +92,8 @@ def make_ba_schedule(cfg: BAConfig):
         )
         T = res_po.T_c_w
         inlier = apply_verdict(inlier, inlier, res_po.landmark_inlier)
+        if mesh is not None:
+            inlier = mesh.all_gather(inlier)
         return ScheduleResult(
             T_c_w=T, inlier=inlier > 0, cost_full=res_full.cost,
             cost_pose=res_po.cost, threshold=res_po.chi2_threshold,

@@ -1,10 +1,18 @@
 """Levenberg-Marquardt bundle adjustment with an explicit Schur complement
-(port of ba/schur_lm.py, single device).
+(port of ba/schur_lm.py).
 
 The window is a dense (L, K) observation grid with masks. The reference's
 early-exit `lax.while_loop` becomes a loop of exactly `iters` iterations in
 which a `done` flag freezes the carry with `torch.where`: the result equals
 the while loop's, and no iteration needs a device-to-host sync.
+
+With `mesh` (utils/dist.LandmarkMesh, the JAX `axis_name`), the problem
+holds this rank's landmark rows and every cross-landmark sum is summed over
+the mesh where the JAX program psums: the Huber cost, the reduced camera
+system (U, b_p, S_cross, b_cross: one all_reduce per LM iteration), the edge
+count and each adaptive round's inlier count. V, Wb, b_l, V_inv and dP stay
+local; the 6K x 6K solve is replicated. The fixed iteration count means
+every rank makes the same sequence of collectives.
 """
 
 from __future__ import annotations
@@ -46,22 +54,30 @@ def edge_mask(problem: BAProblem, depth_ok: torch.Tensor) -> torch.Tensor:
     )
 
 
-def robust_cost(r, problem: BAProblem, huber_delta: float, depth_ok) -> torch.Tensor:
+def psum(mesh, *ts: torch.Tensor):
+    """The tensors summed over the mesh's ranks (JAX `_maybe_psum`), or
+    the tensors themselves without a mesh."""
+    return ts if mesh is None else mesh.all_reduce(*ts)
+
+
+def robust_cost(r, problem: BAProblem, huber_delta: float, depth_ok, mesh=None) -> torch.Tensor:
     """Total Huber cost (what LM accept/reject compares)."""
     n = torch.linalg.vector_norm(r, dim=-1)
     d = huber_delta
     rho = torch.where(n <= d, n * n, 2.0 * d * n - d * d)
-    return torch.sum(rho * edge_mask(problem, depth_ok))
+    return psum(mesh, torch.sum(rho * edge_mask(problem, depth_ok)))[0]
 
 
-def classify(chi2, m, chi2_threshold, adaptive_rounds, target_inlier_ratio):
+def classify(chi2, m, chi2_threshold, adaptive_rounds, target_inlier_ratio, mesh=None):
     """Adaptive chi2 outlier classification (optimization.cpp:224-252):
     double the threshold until more than `target_inlier_ratio` of the edges
-    pass, then flag landmarks whose worst observation fails it."""
-    n_edges = torch.sum(m)
+    pass, then flag landmarks whose worst observation fails it. The counts
+    are f32 sums of masks: exact up to 2^24 edges."""
+    (n_edges,) = psum(mesh, torch.sum(m))
     th = torch.tensor(chi2_threshold, dtype=chi2.dtype, device=chi2.device)
     for _ in range(adaptive_rounds):
-        ratio = torch.sum((chi2 <= th) * m) / torch.clamp(n_edges, min=1.0)
+        (n_in,) = psum(mesh, torch.sum((chi2 <= th) * m))
+        ratio = n_in / torch.clamp(n_edges, min=1.0)
         th = torch.where(ratio > target_inlier_ratio, th, th * 2.0)
     worst = torch.amax(torch.where(m > 0, chi2, 0.0), dim=1)
     has_obs = torch.sum(m, dim=1) > 0
@@ -79,10 +95,12 @@ def lm_optimize(
     chi2_threshold: float = 5.991, adaptive_rounds: int = 5,
     target_inlier_ratio: float = 0.5, lambda_init: float = 1e-4,
     lambda_up: float = 10.0, lambda_down: float = 0.5, rel_tol: float = 1e-6,
+    mesh=None,
 ) -> BAResult:
     """Up to `iters` LM iterations (frozen once an accepted step improves
     the cost by < rel_tol or the damping saturates), then the adaptive
-    outlier classification."""
+    outlier classification. With `mesh`, `problem` holds this rank's
+    landmark rows, and so do the result's points, chi2 and verdicts."""
     dtype, dev = problem.points.dtype, problem.points.device
     nK = problem.T_c_w.shape[0]
     eye6 = torch.eye(6, dtype=dtype, device=dev)
@@ -100,8 +118,6 @@ def lm_optimize(
         b_p = -torch.einsum("lkri,lkr,lk->ki", Jp, r, w)        # (K, 6)
         b_l = -torch.einsum("lkri,lkr,lk->li", Jl, r, w)        # (L, 3)
 
-        U_d = U + lam * (eye6 * torch.clamp(
-            torch.diagonal(U, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 6.0, min=1.0))
         V_d = V + lam * (eye3 * torch.clamp(
             torch.diagonal(V, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 3.0, min=1.0)
         ) + eye3 * 1e-6
@@ -111,9 +127,14 @@ def lm_optimize(
             Y = torch.einsum("lkij,ljm->lkim", Wb, V_inv)       # (L, K, 6, 3)
             S_cross = torch.einsum("lkij,lmnj->kimn", Y, Wb)    # (K, 6, K, 6)
             b_cross = torch.einsum("lkij,lj->ki", Y, b_l)       # (K, 6)
+            U, b_p, S_cross, b_cross = psum(mesh, U, b_p, S_cross, b_cross)
         else:
+            U, b_p = psum(mesh, U, b_p)
             S_cross = torch.zeros((nK, 6, nK, 6), dtype=dtype, device=dev)
             b_cross = torch.zeros((nK, 6), dtype=dtype, device=dev)
+
+        U_d = U + lam * (eye6 * torch.clamp(
+            torch.diagonal(U, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 6.0, min=1.0))
 
         # S[k, :, k, :] is the k-th diagonal 6x6 block (numpy advanced
         # indexing puts the k axis first)
@@ -142,7 +163,7 @@ def lm_optimize(
 
     T, P = problem.T_c_w, problem.points
     r0, d0 = residual_cheap(T, P)
-    cost = robust_cost(r0, problem, huber_delta, d0)
+    cost = robust_cost(r0, problem, huber_delta, d0, mesh)
     lam = torch.tensor(lambda_init, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iters):
@@ -153,7 +174,7 @@ def lm_optimize(
         T_new = se3.normalize_rotation(se3.compose(se3.exp(dxi), T))
         P_new = P + dP
         r2, d2 = residual_cheap(T_new, P_new)
-        cost_new = robust_cost(r2, problem, huber_delta, d2)
+        cost_new = robust_cost(r2, problem, huber_delta, d2, mesh)
         accept = cost_new < cost
         step_done = (accept & (cost - cost_new <= rel_tol * cost)) | (lam >= 1e7)
         lam_new = torch.where(
@@ -170,6 +191,6 @@ def lm_optimize(
     chi2 = torch.sum(r * r, dim=-1)
     inlier, th = classify(
         chi2, edge_mask(problem, depth_ok), chi2_threshold, adaptive_rounds,
-        target_inlier_ratio,
+        target_inlier_ratio, mesh,
     )
     return BAResult(T, P, chi2, inlier, th, cost)

@@ -16,6 +16,12 @@ only runs for accepted frames.
 `index_put` into a buffer with one spare row that absorbs the sentinel;
 real rows are unique there (asserted by the tests), so the write is
 deterministic on CUDA.
+
+With a landmark mesh (utils/dist.LandmarkMesh) every rank runs this same
+loop on the same frames with the whole state: the BA schedule is sharded
+by landmark rows, extraction is data-parallel when the mesh divides the
+chunk, and the per-frame branch fetch takes rank 0's values, so that every
+rank makes the one decision the JAX program makes.
 """
 
 from __future__ import annotations
@@ -159,9 +165,10 @@ class ChunkStep:
     `noise(frame_id)` returns the frame's PnP draws (gumbel (H, N),
     twist_noise (H, 6)). `syncs` counts device-to-host fetches."""
 
-    def __init__(self, config: Config, device):
+    def __init__(self, config: Config, device, mesh=None):
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh
         self.syncs = 0
         # lazy stereo (the production default): depth in the keyframe branch
         # only; with frontend.lazy_depth=False the extractor computes it
@@ -171,7 +178,7 @@ class ChunkStep:
         )
         self.depth_fn = frontend_mod.make_depth_stage(config) if lazy else None
         self.track_step, _ = vslam.make_tracker(config, self.device)
-        self.run_schedule = ba_schedule.make_ba_schedule(config.ba)
+        self.run_schedule = ba_schedule.make_ba_schedule(config.ba, mesh=mesh)
         self.K = vslam.camera_matrix(config, self.device)
         Kw = config.keyframe.window_size
         self._eye4 = torch.eye(4, dtype=torch.float32, device=self.device)
@@ -183,9 +190,23 @@ class ChunkStep:
 
     # ------------------------------------------------------------------ host
     def fetch(self, *scalars: torch.Tensor) -> List[int]:
-        """One device-to-host sync for a few integer/bool scalars."""
+        """One device-to-host sync for a few integer/bool scalars. On a
+        mesh, rank 0's values: a rank that alone took the keyframe branch
+        would wait forever in the BA's first collective."""
         self.syncs += 1
-        return torch.stack([s.to(torch.int64) for s in scalars]).tolist()
+        vals = torch.stack([s.to(torch.int64) for s in scalars])
+        if self.mesh is not None:
+            vals = self.mesh.broadcast(vals)
+        return vals.tolist()
+
+    def extract_chunk(self, images: torch.Tensor) -> FrameFeatures:
+        """Batched extraction; on a mesh whose size divides B, rank r
+        extracts its B/n frames and every rank assembles the B tables."""
+        m = self.mesh
+        if m is None or images.shape[0] % m.size:
+            return self.extract(images)
+        feats = self.extract(images[m.rows(images.shape[0])])
+        return FrameFeatures(*[m.all_gather(f) for f in feats])
 
     # ---------------------------------------------------------------- insert
     def insert_keyframe(self, tstate, mstate, feats, frame_id: int, kf_count: int):
@@ -363,7 +384,7 @@ class ChunkStep:
     # ----------------------------------------------------------------- chunk
     def __call__(self, carry: SlamCarry, images: torch.Tensor, frame_ids,
                  noise: Callable[[int], Tuple[torch.Tensor, torch.Tensor]]):
-        feats = self.extract(images)
+        feats = self.extract_chunk(images)
         records = []
         for b, fid in enumerate(frame_ids):
             frame = FrameFeatures(*[f[b] for f in feats])

@@ -10,6 +10,17 @@ Usage:
 
     --device D              torch device (default cuda; cpu runs the kernels'
                             plain versions)
+    --cpu                   the same as --device cpu
+    --mesh-devices N        shard the BA schedule's landmarks over N ranks
+                            (chunked driver; 1 without --distributed: a
+                            one-rank group in this process)
+    --distributed           join a torch.distributed group from torchrun's
+                            environment (RANK, WORLD_SIZE, LOCAL_RANK,
+                            MASTER_ADDR, MASTER_PORT) and shard over all its
+                            ranks unless --mesh-devices says fewer; a CUDA
+                            --device becomes cuda:LOCAL_RANK (nccl), the CPU
+                            stays the CPU (gloo); only rank 0 prints and
+                            writes
     --driver chunked|host   execution path (default: chunked)
     --chunk N               frames per chunk (chunked driver)
     --rolling K             chunked driver: at most K staged chunks ahead
@@ -53,6 +64,12 @@ def build_argparser():
     p.add_argument("--chunk", type=int, default=8, help="chunked driver: frames per chunk")
     p.add_argument("--lookahead", type=int, default=0, help="host driver: pipeline depth")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU (= --device cpu)")
+    p.add_argument("--mesh-devices", type=int, default=0, metavar="N",
+                   help="shard the BA schedule over N ranks (0: off, or every "
+                        "rank with --distributed)")
+    p.add_argument("--distributed", action="store_true",
+                   help="initialize torch.distributed from torchrun's environment")
     p.add_argument("--plot", help="write trajectory plot PNG")
     p.add_argument("--ply", help="write landmark cloud PLY")
     p.add_argument("--record", help="write per-frame JSONL log")
@@ -68,7 +85,39 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    if args.cpu:
+        args.device = "cpu"
+    if not (args.distributed or args.mesh_devices):
+        return _main(args, None)
+    if args.driver != "chunked":
+        print("--mesh-devices and --distributed run the chunked driver", file=sys.stderr)
+        return 2
 
+    import torch
+    import torch.distributed as dist
+
+    from stereo_visual_slam_tpu_torch.utils import dist as dist_utils
+
+    if args.distributed and torch.device(args.device).type == "cuda":
+        args.device = f"cuda:{dist_utils.local_rank()}"
+    # without --distributed this process is the only rank
+    ranks = {} if args.distributed else dict(world_size=1, rank=0)
+    created = dist_utils.initialize_distributed(device=args.device, **ranks)
+    try:
+        have = dist.get_world_size()
+        if args.mesh_devices > have:
+            print(f"need {args.mesh_devices} devices, have {have}", file=sys.stderr)
+            return 2
+        mesh = dist_utils.make_landmark_mesh(args.mesh_devices)
+        if mesh is None:
+            return 0  # a rank beyond the mesh holds no landmarks
+        return _main(args, mesh)
+    finally:
+        if created:
+            dist_utils.shutdown()
+
+
+def _main(args, mesh):
     import numpy as np
 
     from stereo_visual_slam_tpu_torch.pipeline import viz
@@ -105,9 +154,18 @@ def main(argv=None):
     if args.frames:
         n_frames = min(n_frames, args.frames)
 
+    # on a mesh only rank 0 prints, records and shows; ChunkedSlam withholds
+    # the other ranks' pose file and snapshots itself
+    args.reports = mesh is None or mesh.rank == 0
+    if not args.reports:
+        args.quiet, args.record, args.viz_every = True, None, 0
     recorder = viz.TrajectoryRecorder(args.record) if args.record else None
-    runner = _run_chunked if args.driver == "chunked" else _run_host
-    slam, wall, n_done, n_kf = runner(args, cfg, source, n_frames, recorder)
+    if args.driver == "chunked":
+        slam, wall, n_done, n_kf = _run_chunked(args, cfg, source, n_frames, recorder, mesh)
+    else:
+        slam, wall, n_done, n_kf = _run_host(args, cfg, source, n_frames, recorder)
+    if not args.reports:
+        return 0
     print(f"processed {n_done} frames, {n_kf} keyframes "
           f"in {wall:.1f}s ({n_done / max(wall, 1e-9):.2f} fps on {slam.device})")
 
@@ -144,14 +202,15 @@ def _bounded(source, n_frames):
         yield f, left, right
 
 
-def _run_chunked(args, cfg, source, n_frames, recorder):
+def _run_chunked(args, cfg, source, n_frames, recorder, mesh):
     """The production path: the chunked SLAM core."""
     from stereo_visual_slam_tpu_torch.pipeline import viz
     from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
 
     if args.no_ba:
         cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, enable_ba=False))
-    slam = ChunkedSlam(cfg, chunk=args.chunk, pose_path=args.pose_out, device=args.device)
+    slam = ChunkedSlam(cfg, chunk=args.chunk, pose_path=args.pose_out, device=args.device,
+                       mesh=mesh)
     if args.resume:
         slam.load_snapshot(args.resume)
     live_viz = viz.LiveViz(args.viz_dir, every=args.viz_every) if args.viz_every else None
@@ -174,7 +233,7 @@ def _run_chunked(args, cfg, source, n_frames, recorder):
                 live_viz.tick(slam, f)
             if slam.lost:
                 break
-    if slam.lost:
+    if slam.lost and args.reports:
         print("tracking LOST", file=sys.stderr)
     slam.finish()
     _report(slam.stats, seen, slam.estimates, recorder, args.quiet)
