@@ -34,7 +34,19 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
          inliers equal, full-BA cost rtol 1e-4), then the 64-frame slice
          on both ranks: phase 4's gates, BA on the mesh, every frame within
          5e-2 m of phase 4's, both ranks' carries bit-equal;
-     with the ms per BA run sharded and unsharded and each run's wall.
+     with the ms per BA run sharded and unsharded and each run's wall;
+  8. the KITTI entry point: phase 4's frames written as 8-bit PNGs in the
+     KITTI layout (the writer below, standard library only, cycles each
+     image's rows through the five PNG filters), then read through the
+     port's native runtime (utils/native.py, built from the checkout):
+     (a) 64 frames in order, byte-equal to the rendered ones, and
+         config_for giving Config();
+     (b) frames/s of the prefetcher at 1 and 4 workers, of
+         read_image_gray frame by frame and of PIL (median of 3);
+     (c) ChunkedSlam.run_rolling (window 4) fed by seq.frames(): records,
+         poses and the whole carry bit-equal to phase 4's run;
+     (d) run_vslam --dataset ... --device cuda --rolling 4: exit 0, a pose
+         file byte-equal to (c)'s, the ATE and KITTI line printed.
 Each path's kernel launches are counted from 0 just before it runs.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's `nvidia-smi` name and power limit, before that a JSON line with the
@@ -43,13 +55,18 @@ kernels' measurements and per-path launch counts.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -68,6 +85,9 @@ MESH_WINDOWS = ((10, 4096), (20, 8192))
 SCHEDULE_REPS = 5
 MESH_POSE_BOUND_M = 5e-2   # per frame, as tests/test_parallel.py
 MESH_TIMEOUT_S = 480       # phase 7(b) as a whole, both ranks
+DATASET_WINDOW = 4         # phase 8's run_rolling window, as `run_vslam --rolling 4`
+DECODE_REPS = 3
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def log(msg: str) -> None:
@@ -267,7 +287,7 @@ def run_slice(frames, world, cfg):
     if ate > DEFAULT_GATES["ate"] or t_err > DEFAULT_GATES["trans"]:
         raise AssertionError("the slice misses the accuracy gates")
     check_launches(launches, "slice")
-    return launches, slam
+    return launches, slam, wall
 
 
 def run_host(frames, world, cfg):
@@ -606,6 +626,198 @@ def run_mesh_two_ranks(frames, world, cfg, ref, dev):
     return results
 
 
+def png_bytes(img: np.ndarray, level: int = 6, first: int = 0) -> bytes:
+    """A grayscale PNG of `img` (8-bit for uint8, 16-bit for uint16) built on
+    the standard library alone (the card's machine need not have Pillow).
+    Row r takes filter type (first + r) % 5: None, Sub, Up, Average, Paeth
+    in turn, so that a decoder's unfiltering is exercised. The predictors
+    read the original samples, so numpy filters every row at once."""
+    h, w = img.shape
+    depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}[img.dtype]
+    bpp = depth // 8
+    x = np.ascontiguousarray(img, dtype=">u2" if depth == 16 else np.uint8)
+    x = x.view(np.uint8).reshape(h, w * bpp).astype(np.int16)
+    a = np.zeros_like(x)   # left: the same row, one pixel back
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)   # up
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)   # up-left
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    predictors = np.stack([np.zeros_like(x), a, b, (a + b) // 2, paeth])
+    kind = (first + np.arange(h)) % 5
+    rows = ((x - predictors[kind, np.arange(h)]) & 0xFF).astype(np.uint8)
+    raw = np.concatenate([kind[:, None].astype(np.uint8), rows], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    header = struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0)   # gray, no interlace
+    return (PNG_SIGNATURE + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b""))
+
+
+def write_kitti(root, frames, world, cam):
+    """The frames as sequence 00 of a KITTI odometry tree under `root`:
+    8-bit PNGs of what the slice reads (the pixels cast to uint8, as
+    ChunkedSlam's upload does), calib.txt and the ground-truth poses, each
+    number written with repr so that it parses back exactly."""
+    seq = os.path.join(root, "sequences", "00")
+    for side in ("image_0", "image_1"):
+        os.makedirs(os.path.join(seq, side))
+    for f, left, right in frames:
+        for side, img in (("image_0", left), ("image_1", right)):
+            with open(os.path.join(seq, side, f"{f:06d}.png"), "wb") as fh:
+                fh.write(png_bytes(img.astype(np.uint8), first=f))
+    fx, fy, cx, cy = (float(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy))
+    tx = -fx * float(cam.baseline)
+    with open(os.path.join(seq, "calib.txt"), "w") as fh:
+        fh.write(f"P0: {fx!r} 0 {cx!r} 0 0 {fy!r} {cy!r} 0 0 0 1 0\n"
+                 f"P1: {fx!r} 0 {cx!r} {tx!r} 0 {fy!r} {cy!r} 0 0 0 1 0\n")
+    os.makedirs(os.path.join(root, "poses"))
+    with open(os.path.join(root, "poses", "00.txt"), "w") as fh:
+        for T in world.poses_T_c_w:
+            fh.write(" ".join(repr(float(v)) for v in np.linalg.inv(T)[:3, :4].reshape(-1)) + "\n")
+
+
+def decode_rates(seq):
+    """Phase 8(b): frames/s of four ways of reading the sequence (each
+    stereo pair decoded once), median of DECODE_REPS runs taken in turns."""
+    from stereo_visual_slam_tpu_torch.utils import native
+
+    dirs = [os.path.join(seq.seq_dir, side) for side in ("image_0", "image_1")]
+    paths = [os.path.join(d, f"{i:06d}.png") for i in range(seq.n_frames) for d in dirs]
+    hw = seq.frame_hw()
+
+    def prefetch(workers):
+        def run():
+            with native.StereoPrefetcher(*dirs, count=seq.n_frames, hw=hw, depth=8,
+                                         workers=workers) as pf:
+                for _ in pf:
+                    pass
+        return run
+
+    def by_frame():
+        for p in paths:
+            native.read_image_gray(p)
+
+    ways = {"prefetch_workers1": prefetch(1), "prefetch_workers4": prefetch(4),
+            "read_image_gray": by_frame}
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        def pil():
+            for p in paths:
+                with Image.open(p) as im:
+                    np.asarray(im.convert("L"), dtype=np.uint8)
+        ways["pil"] = pil
+    times = {k: [] for k in ways}
+    names = list(ways)
+    for rep in range(DECODE_REPS):
+        for k in names[rep % len(names):] + names[:rep % len(names)]:
+            t0 = time.perf_counter()
+            ways[k]()
+            times[k].append(time.perf_counter() - t0)
+    rates = {k: seq.n_frames / float(np.median(v)) for k, v in times.items()}
+    rates.setdefault("pil", "absent")
+    return rates
+
+
+def run_dataset(frames, world, cfg, ref, ref_wall):
+    """Phase 8: the KITTI entry point, from PNG files through the port's
+    native runtime to the card; `ref` and `ref_wall` are phase 4's run."""
+    from stereo_visual_slam_tpu_torch import run_vslam
+    from stereo_visual_slam_tpu_torch.data import kitti
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
+    from stereo_visual_slam_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"phase 8: the native runtime is not available:\n{native.load_error()}")
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_kitti(root, frames, world, cfg.camera)
+        write_s = time.perf_counter() - t0
+        log(f"dataset: native runtime {native.library_path()} ({build_s:.1f} s); "
+            f"{len(frames)} stereo PNG pairs written in {write_s:.1f} s")
+
+        # (a) decode: every frame in order, byte-equal; the config back
+        seq = kitti.open_sequence(root, "00")
+        if seq.n_frames != FRAMES:
+            raise AssertionError(f"phase 8(a): found {seq.n_frames} frames, wrote {FRAMES}")
+        cfg_seq = kitti.config_for(seq, cfg)
+        if dataclasses.asdict(cfg_seq) != dataclasses.asdict(cfg):
+            raise AssertionError("phase 8(a): config_for(seq, Config()) differs from Config()")
+        with contextlib.closing(seq.frames()) as decoded:
+            for (i, left, right), (f, l0, r0) in zip(decoded, frames, strict=True):
+                if i != f or not (np.array_equal(left, l0.astype(np.uint8))
+                                  and np.array_equal(right, r0.astype(np.uint8))):
+                    raise AssertionError(f"phase 8(a): frame {i} (expected {f}) differs")
+        log(f"dataset (a): {FRAMES} frames decoded in order, byte-equal; config_for == Config()")
+
+        # (b) decode rates on the card's host
+        rates = decode_rates(seq)
+        log("dataset (b): frames/s, median of %d: %s; os.cpu_count() %d" % (
+            DECODE_REPS, ", ".join(f"{k} {v if isinstance(v, str) else f'{v:.1f}'}"
+                                   for k, v in rates.items()), os.cpu_count()))
+
+        # (c) the slice fed from the files
+        pose_c = os.path.join(root, "rolling.txt")
+        slam = ChunkedSlam(cfg_seq, chunk=CHUNK, device="cuda", pose_path=pose_c)
+        kernels.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.closing(seq.frames()) as source:
+            slam.run_rolling(source, window_chunks=DATASET_WINDOW)
+        slam.finish()
+        sync()
+        wall_c = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        diff = same_run(slam, ref)
+        log(f"dataset (c): {len(slam.stats)} frames from files, run_rolling window "
+            f"{DATASET_WINDOW}, in {wall_c:.3f} s (phase 4 streamed from memory: {ref_wall:.3f} s); "
+            f"syncs/frame {slam.syncs / len(slam.stats):.3f}; differs from phase 4 in: "
+            f"{diff or 'nothing'}; launches {launches}")
+        if diff:
+            raise AssertionError(f"phase 8(c): the file-fed run differs from phase 4 in {diff}")
+        check_launches(launches, "dataset (c)")
+
+        # (d) the CLI on the same tree
+        pose_d = os.path.join(root, "cli.txt")
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = run_vslam.main(["--dataset", root, "--sequence", "00", "--device", "cuda",
+                                 "--rolling", str(DATASET_WINDOW), "--pose-out", pose_d,
+                                 "--quiet"])
+        sync()
+        wall_d = time.perf_counter() - t0
+        cli_launches = kernels.launch_counts()
+        printed = out.getvalue()
+        with open(pose_c, "rb") as a, open(pose_d, "rb") as b:
+            same_poses = a.read() == b.read()
+        log(f"dataset (d): run_vslam --dataset ... --rolling {DATASET_WINDOW} returned {rc} in "
+            f"{wall_d:.3f} s; pose file byte-equal to (c)'s: {same_poses}; launches "
+            f"{cli_launches}; it printed: " + " | ".join(printed.strip().splitlines()))
+        if rc != 0 or not same_poses:
+            raise AssertionError(f"phase 8(d): exit {rc}, pose file equal {same_poses}")
+        if "ATE RMSE" not in printed or "KITTI trans" not in printed:
+            raise AssertionError("phase 8(d): the CLI printed no ATE and KITTI line")
+        check_launches(cli_launches, "dataset (d)")
+    return dict(decode_frames_per_s=rates, cpu_count=os.cpu_count(), write_s=write_s,
+                rolling_wall_s=wall_c, cli_wall_s=wall_d, phase4_wall_s=ref_wall,
+                launches=launches, cli_launches=cli_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -631,7 +843,7 @@ def main() -> int:
 
     measured = check_kernels(cfg, frames, dev)
     launches = {}
-    launches["chunked"], slice_run = run_slice(frames, world, cfg)
+    launches["chunked"], slice_run, slice_wall = run_slice(frames, world, cfg)
     launches["host"], host_rates = run_host(frames, world, cfg)
     launches["reference_config"] = run_reference(frames, world, cfg)
     launches["mesh_nccl_1"], mesh_one = run_mesh_one_rank(frames, cfg, slice_run, dev)
@@ -647,6 +859,12 @@ def main() -> int:
                        for k, v in res["schedules"].items())
            for r, res in enumerate(mesh_two)])
     log(f"mesh BA per BA run and slice walls, on {card}: {timing}")
+    dataset = run_dataset(frames, world, cfg, slice_run, slice_wall)
+    launches["dataset"], launches["dataset_cli"] = dataset["launches"], dataset["cli_launches"]
+    rates = dataset["decode_frames_per_s"]
+    log(f"dataset on {card}: decode frames/s {rates} on {dataset['cpu_count']} CPUs; walls: "
+        f"rolling from files {dataset['rolling_wall_s']:.3f} s, CLI {dataset['cli_wall_s']:.3f} s, "
+        f"phase 4 {slice_wall:.3f} s")
 
     src = {"fast_nms": ("stereo_visual_slam_tpu_torch/csrc/fast_nms.cu",
                         "stereo_visual_slam_tpu/ops/pallas/fast_kernel.py:96"),
@@ -665,6 +883,7 @@ def main() -> int:
     g = measured["gather_patches"]
     print(json.dumps({"kernels": rows, "host_driver": host_rates,
                       "mesh": {"nccl_1_rank": mesh_one, f"gloo_{MESH_RANKS}_ranks": mesh_two},
+                      "dataset": dataset,
                       "brief_bit_flips": [g["brief_bit_flips"], g["brief_bits"]],
                       "steered_bit_flips": [g["steered_bit_flips"], g["brief_bits"]]}))
     print(card)

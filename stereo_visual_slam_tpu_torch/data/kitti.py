@@ -18,9 +18,7 @@ sequence, kitti_param.yaml:2).
 
 The port's own copy of stereo_visual_slam_tpu/data/kitti.py: the port imports
 nothing of the JAX package. tests/test_torch_shared_copies.py holds the
-copy equal to the original. One difference: the original decodes through the
-JAX package's native prefetcher (utils/native.py) where it is built; this
-copy always takes the original's fallback, PIL, frame by frame.
+copy equal to the original.
 """
 
 from __future__ import annotations
@@ -31,10 +29,13 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from stereo_visual_slam_tpu_torch.utils import native
 from stereo_visual_slam_tpu_torch.utils.config import CameraConfig, Config
 
 
 def _imread_gray(path: str) -> np.ndarray:
+    if native.available():
+        return native.read_image_gray(path)
     from PIL import Image
 
     with Image.open(path) as im:
@@ -55,7 +56,23 @@ class KittiSequence:
         return left, right
 
     def frames(self) -> Iterator[Tuple[int, np.ndarray, np.ndarray]]:
-        """Stream (i, left, right), decoded synchronously."""
+        """Stream (i, left, right). Uses the native multithreaded prefetcher
+        (utils/native.py) when available so image decode overlaps the
+        consumer's device compute; falls back to synchronous reads. Closing
+        the generator early (a consumer that stops) joins the workers."""
+        if native.available() and self.n_frames > 0:
+            h, w = self.frame_hw()
+            pf = native.StereoPrefetcher(
+                os.path.join(self.seq_dir, "image_0"),
+                os.path.join(self.seq_dir, "image_1"),
+                count=self.n_frames,
+                hw=(h, w),
+            )
+            try:
+                yield from pf
+            finally:
+                pf.close()
+            return
         for i in range(self.n_frames):
             left, right = self.frame(i)
             yield i, left, right

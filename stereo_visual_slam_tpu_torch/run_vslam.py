@@ -160,10 +160,15 @@ def _main(args, mesh):
     if not args.reports:
         args.quiet, args.record, args.viz_every = True, None, 0
     recorder = viz.TrajectoryRecorder(args.record) if args.record else None
-    if args.driver == "chunked":
-        slam, wall, n_done, n_kf = _run_chunked(args, cfg, source, n_frames, recorder, mesh)
-    else:
-        slam, wall, n_done, n_kf = _run_host(args, cfg, source, n_frames, recorder)
+    # closing the source joins a dataset's prefetch workers, however the run
+    # ended: finished, Lost or cut by --frames
+    try:
+        if args.driver == "chunked":
+            slam, wall, n_done, n_kf = _run_chunked(args, cfg, source, n_frames, recorder, mesh)
+        else:
+            slam, wall, n_done, n_kf = _run_host(args, cfg, source, n_frames, recorder)
+    finally:
+        source.close()
     if not args.reports:
         return 0
     print(f"processed {n_done} frames, {n_kf} keyframes "

@@ -35,14 +35,15 @@ def initialize_distributed(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
     *,
+    device,
     master_port: Optional[int] = None,
-    device="cpu",
     backend: Optional[str] = None,
 ) -> bool:
     """Idempotent `init_process_group`; arguments override the environment.
-    The backend is nccl for a CUDA `device` and gloo for the CPU unless
-    `backend` names one. One rank with no address gets an in-process store.
-    Returns True when this call created the group."""
+    `device` has no default, as in ChunkedSlam. The backend is nccl for a
+    CUDA `device` and gloo for the CPU unless `backend` names one. One rank
+    with no address gets an in-process store. Returns True when this call
+    created the group."""
     if dist.is_initialized():
         return False
     env = os.environ

@@ -159,10 +159,10 @@ def test_initialize_distributed_once(monkeypatch):
 
     monkeypatch.delenv("MASTER_ADDR", raising=False)
     with pytest.raises(ValueError, match="2 ranks need MASTER_ADDR"):
-        dist_utils.initialize_distributed(world_size=2, rank=0)
-    assert dist_utils.initialize_distributed(world_size=1, rank=0)
+        dist_utils.initialize_distributed(world_size=2, rank=0, device="cpu")
+    assert dist_utils.initialize_distributed(world_size=1, rank=0, device="cpu")
     try:
-        assert not dist_utils.initialize_distributed(world_size=1, rank=0)
+        assert not dist_utils.initialize_distributed(world_size=1, rank=0, device="cpu")
         assert torch.distributed.get_backend() == "gloo"
         mesh = dist_utils.make_landmark_mesh()
         assert (mesh.rank, mesh.size) == (0, 1)
@@ -170,6 +170,16 @@ def test_initialize_distributed_once(monkeypatch):
             dist_utils.make_landmark_mesh(2)
     finally:
         dist_utils.shutdown()
+    assert not torch.distributed.is_initialized()
+
+
+def test_initialize_distributed_needs_a_device():
+    """No default device (a caller naming none got the CPU and gloo): the
+    call raises before it touches the process group."""
+    from stereo_visual_slam_tpu_torch.utils import dist as dist_utils
+
+    with pytest.raises(TypeError, match="device"):
+        dist_utils.initialize_distributed(world_size=1, rank=0)
     assert not torch.distributed.is_initialized()
 
 

@@ -225,8 +225,8 @@ def test_yaml_round_trip_equal(tmp_path):
         port_io.config_from_dict({"frontend": {"no_such_key": 1}})
 
 
-def test_kitti_reader_same_arrays(tmp_path):
-    """A 3-frame sequence in the KITTI layout, read by both readers."""
+def _kitti_tree(tmp_path):
+    """A 3-frame sequence in the KITTI layout, with calib and poses."""
     from PIL import Image
 
     rng = np.random.default_rng(7)
@@ -243,6 +243,27 @@ def test_kitti_reader_same_arrays(tmp_path):
     gt = _poses(rng, 3)
     (tmp_path / "poses" / "03.txt").write_text("\n".join(
         " ".join(f"{v:.17g}" for v in np.linalg.inv(T)[:3, :4].reshape(-1)) for T in gt) + "\n")
+    return seq
+
+
+def test_kitti_reader_same_arrays(tmp_path):
+    """The sequence read by both readers, each through its native runtime
+    where that builds (the port's: utils/native.py)."""
+    _assert_kitti_readers_agree(tmp_path, _kitti_tree(tmp_path))
+
+
+def test_kitti_reader_pil_route_same_arrays(tmp_path, monkeypatch):
+    """The port's fallback where its native runtime cannot be built (PIL,
+    frame by frame) gives the same arrays."""
+    from stereo_visual_slam_tpu_torch.utils import native as port_native
+
+    monkeypatch.setattr(port_native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "StereoPrefetcher", None)
+    monkeypatch.setattr(port_native, "read_image_gray", None)
+    _assert_kitti_readers_agree(tmp_path, _kitti_tree(tmp_path))
+
+
+def _assert_kitti_readers_agree(tmp_path, seq):
     for root, sequence in ((str(tmp_path), "03"), (str(seq), None)):
         j = jax_kitti.open_sequence(root, sequence)
         t = port_kitti.open_sequence(root, sequence)

@@ -149,7 +149,7 @@ def launch(job, n, inputs, out_dir, timeout=240):
 def main():
     job, inp, out_dir = sys.argv[1:4]
     torch.set_num_threads(1)
-    created = dist_utils.initialize_distributed()
+    created = dist_utils.initialize_distributed(device="cpu")
     try:
         mesh = dist_utils.make_landmark_mesh()
         with np.load(inp) as f:
