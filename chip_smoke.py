@@ -46,8 +46,23 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
      (c) ChunkedSlam.run_rolling (window 4) fed by seq.frames(): records,
          poses and the whole carry bit-equal to phase 4's run;
      (d) run_vslam --dataset ... --device cuda --rolling 4: exit 0, a pose
-         file byte-equal to (c)'s, the ATE and KITTI line printed.
-Each path's kernel launches are counted from 0 just before it runs.
+         file byte-equal to (c)'s, the ATE and KITTI line printed;
+  9. the port's bench (bench.run_bench) at a reduced length: 3 warm-up and
+     3 timed chunks, one staged run, the streaming and rolling passes, the
+     hard (45 frames) and highway (96 frames) profiles: the JSON line's four
+     keys, every profile's binding gate PASS with no Lost; then the full
+     bench's default world (216 frames) on the degraded config, whose
+     binding gate must FAIL;
+ 10. the entry points: graft_entry.entry()'s step once,
+     graft_entry.dryrun_multichip(1) on a one-rank NCCL mesh at production
+     shapes (BA on the mesh), and `python -m
+     stereo_visual_slam_tpu_torch.run_synthetic 16 --device cuda` as a
+     process (exit 0, every frame tracked; it prints its launch counts);
+ 11. a 512-frame soak (soak.run_soak): every check passes (the pace check
+     needs 8 marks of 512 frames and skips), keyframes were evicted.
+Each path's kernel launches are counted from 0 just before it runs; on the
+paths of phases 9-11 FAST+NMS and the patch gather launch at least once a
+frame and ZNCC at least once a keyframe. Each phase's wall is logged.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's `nvidia-smi` name and power limit, before that a JSON line with the
 kernels' measurements and per-path launch counts.
@@ -87,6 +102,14 @@ MESH_POSE_BOUND_M = 5e-2   # per frame, as tests/test_parallel.py
 MESH_TIMEOUT_S = 480       # phase 7(b) as a whole, both ranks
 DATASET_WINDOW = 4         # phase 8's run_rolling window, as `run_vslam --rolling 4`
 DECODE_REPS = 3
+# phase 9's bench: 3 timed chunks after the 3 warm-up ones, and the hard and
+# highway profiles at the JAX package's slow tests' lengths
+BENCH_CHUNKS = 3
+BENCH_HARD_FRAMES = 45
+BENCH_HIGHWAY_FRAMES = 96
+DEGRADE_CHUNKS = 24        # the full bench's timed chunks, for phase 9's degraded run
+SYNTHETIC_FRAMES = 16      # phase 10's run_synthetic
+SOAK_FRAMES = 512          # phase 11
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
@@ -818,6 +841,145 @@ def run_dataset(frames, world, cfg, ref, ref_wall):
                 launches=launches, cli_launches=cli_launches)
 
 
+def check_per_frame(launches, frames, keyframes, label):
+    """FAST+NMS and the patch gather at least once per frame, ZNCC at least
+    once per keyframe."""
+    check_launches(launches, label)
+    short = [k for k, need in (("fast_nms", frames), ("gather_patches", frames),
+                               ("zncc_sweep", keyframes)) if launches[k] < need]
+    if short:
+        raise AssertionError(f"{label}: {short} launched fewer times than needed for {frames} "
+                             f"frames and {keyframes} keyframes: {launches}")
+
+
+def run_bench_phase(cfg, renderer):
+    """Phase 9: the port's bench in this process at a reduced length, then
+    the bench's whole default world on the degraded config."""
+    from stereo_visual_slam_tpu_torch import bench
+    from stereo_visual_slam_tpu_torch.data import synthetic
+    from stereo_visual_slam_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    sync()
+    out = bench.run_bench(cfg, device="cuda", renderer=renderer, chunk=CHUNK,
+                          n_chunks=BENCH_CHUNKS, runs=1, hard_frames=BENCH_HARD_FRAMES,
+                          highway_frames=BENCH_HIGHWAY_FRAMES, log=log)
+    log(f"bench: {json.dumps(out['line'])}")
+    if list(out["line"]) != ["metric", "value", "unit", "vs_baseline"]:
+        raise AssertionError(f"phase 9: the JSON line's keys are {list(out['line'])}")
+    launches = {}
+    for name, p in out["profiles"].items():
+        if p["lost"] or not p["gate"]:
+            raise AssertionError(f"phase 9: the {name} profile: lost {p['lost']}, {p['verdict']}")
+        check_per_frame(p["launches"], p["frames"], p["keyframes"], f"bench {name}")
+        launches[f"bench_{name}"] = p["launches"]
+    if set(launches) != {"bench_default", "bench_hard", "bench_highway"}:
+        raise AssertionError(f"phase 9: profiles run: {sorted(launches)}")
+    # the gate self-test on the full bench's default world: over a few
+    # chunks the degraded run's error can sit on the gate's line
+    n = CHUNK * (bench.WARMUP_CHUNKS + DEGRADE_CHUNKS)
+    world = synthetic.make_world(cfg, n_frames=n, n_points=8000, seed=0)
+    t0 = time.perf_counter()
+    _, bad = bench.run_sequence(bench.degraded(cfg), world, renderer.render_all(world), CHUNK,
+                                "cuda")
+    sync()
+    bad["verdict"] = bench.gate_verdict("default", bad)
+    log(f"bench, degraded PnP: default world, {n} frames in {time.perf_counter() - t0:.1f} s "
+        f"(render included): tracked {bad['tracked']}/{n} ate={bad['ate']:.3f}m "
+        f"trans={bad['trans']:.2f}% lost={bad['lost']} | {bad['verdict']}")
+    if bench.binding_gate("default", bad):
+        raise AssertionError("phase 9: the degraded run passes the binding gate")
+    profiles = {k: {f: p[f] for f in ("ate", "trans", "rot", "tracked", "lost", "verdict",
+                                      "frames", "keyframes")}
+                for k, p in out["profiles"].items()}
+    return launches, dict(bench=dict(out, profiles=profiles), degraded=bad)
+
+
+def run_entry_points(cfg):
+    """Phase 10: graft_entry's step once, its dry run on a one-rank NCCL
+    mesh at production shapes, and the synthetic example as a process."""
+    from stereo_visual_slam_tpu_torch import graft_entry
+    from stereo_visual_slam_tpu_torch.ops import kernels
+
+    launches = {}
+    fn, args = graft_entry.entry("cuda", cfg)
+    kernels.reset_launch_counts()
+    sync()
+    state, info = fn(*args)
+    sync()
+    launches["graft_entry"] = kernels.launch_counts()
+    if not (torch.isfinite(state.T_c_w).all()
+            and state.yx.shape == (cfg.frontend.max_raw_keypoints, 2)):
+        raise AssertionError("phase 10: entry()'s step gave a bad state")
+    check_per_frame(launches["graft_entry"], 1, 1, "graft_entry")
+    log(f"entry: step ran, {int(info.n_matches)} matches, {int(info.n_inliers)} inliers; "
+        f"launches {launches['graft_entry']}")
+
+    kernels.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(1, "cuda", cfg)
+    sync()
+    launches["dryrun_nccl_1"] = kernels.launch_counts()
+    if dry["backend"] != "nccl" or dry["ba_runs"] < 1:
+        raise AssertionError(f"phase 10: dryrun on {dry['backend']}, {dry['ba_runs']} BA runs")
+    check_per_frame(launches["dryrun_nccl_1"], dry["frames"], dry["keyframes"], "dryrun_nccl_1")
+    log(f"dryrun_multichip(1): NCCL, {dry['frames']} frames, {dry['keyframes']} keyframes, "
+        f"{dry['ba_runs']} BA runs on the mesh in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches['dryrun_nccl_1']}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "stereo_visual_slam_tpu_torch.run_synthetic",
+                           str(SYNTHETIC_FRAMES), "--device", "cuda"], cwd=here, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    log(f"run_synthetic {SYNTHETIC_FRAMES} --device cuda: exit {proc.returncode} in {wall:.1f} s; "
+        + " | ".join(line for line in lines if line and not line.startswith("frame ")))
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 10: run_synthetic exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    launches["run_synthetic"] = json.loads(
+        next(line for line in lines if line.startswith("kernel launches: "))[17:])
+    tracked = next(line for line in lines if line.startswith("tracked "))
+    n_kf = int(tracked.split(", ")[1].split()[0])
+    if not tracked.startswith(f"tracked {SYNTHETIC_FRAMES}/{SYNTHETIC_FRAMES} "):
+        raise AssertionError(f"phase 10: run_synthetic: {tracked}")
+    check_per_frame(launches["run_synthetic"], SYNTHETIC_FRAMES, n_kf, "run_synthetic")
+    return launches, dict(dryrun={k: v for k, v in dry.items() if k != "T_c_w"},
+                          run_synthetic_wall_s=wall)
+
+
+def run_short_soak(cfg, renderer):
+    """Phase 11: the soak's run and checks at SOAK_FRAMES frames."""
+    from stereo_visual_slam_tpu_torch import soak
+    from stereo_visual_slam_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    sync()
+    out = soak.run_soak(cfg, SOAK_FRAMES, CHUNK, device="cuda", renderer=renderer, log=log)
+    sync()
+    launches = kernels.launch_counts()
+    slam = out.pop("slam")
+    out.pop("world")
+    out.pop("live_rows")
+    for ok, msg in out["checks"]:
+        log(f"soak {'ok' if ok else 'FAIL'}: {msg}")
+    log(f"soak: {out['n_frames']} frames in {out['wall_s']:.1f} s ({out['fps_wall']:.2f} frames/s "
+        f"wall), {out['n_keyframes']} keyframes, {out['n_evictions']} evictions, arena "
+        f"{out['arena_live']} live at the end, high water {out['arena_high_water']}/"
+        f"{out['arena_capacity']} (full after {out['arena_full_chunks']} of {out['arena_chunks']} "
+        f"chunks), rss +{out['rss_growth_mb']:.1f} MB over {out['rss_chunks']} chunks; "
+        f"launches {launches}")
+    if not out["ok"] or out["n_evictions"] < 1 or len(slam.stats) != SOAK_FRAMES:
+        raise AssertionError(f"phase 11: soak ok {out['ok']}, {out['n_evictions']} evictions")
+    check_per_frame(launches, SOAK_FRAMES, out["n_keyframes"], "soak")
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -826,28 +988,38 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    from stereo_visual_slam_tpu_torch.data import synthetic
+    from stereo_visual_slam_tpu_torch.data import render_pool, synthetic
     from stereo_visual_slam_tpu_torch.ops.kernels import _build
     from stereo_visual_slam_tpu_torch.utils.config import Config
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
+    t_start = t_phase = time.perf_counter()
+    walls = {}
     _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}")
+    log(f"build: {time.perf_counter() - t_phase:.1f} s -> {_build.library_path()}")
+    walls["2 build"] = time.perf_counter() - t_phase
 
     cfg = Config()
     t0 = time.perf_counter()
     world = synthetic.make_world(cfg, n_frames=FRAMES, n_points=8000, seed=0)
     frames = list(synthetic.frames(world))
     log(f"render: {FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    walls["render"] = time.perf_counter() - t0
 
-    measured = check_kernels(cfg, frames, dev)
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    measured = phase("3 kernels", check_kernels, cfg, frames, dev)
     launches = {}
-    launches["chunked"], slice_run, slice_wall = run_slice(frames, world, cfg)
-    launches["host"], host_rates = run_host(frames, world, cfg)
-    launches["reference_config"] = run_reference(frames, world, cfg)
-    launches["mesh_nccl_1"], mesh_one = run_mesh_one_rank(frames, cfg, slice_run, dev)
-    mesh_two = run_mesh_two_ranks(frames, world, cfg, slice_run, dev)
+    launches["chunked"], slice_run, slice_wall = phase("4 slice", run_slice, frames, world, cfg)
+    launches["host"], host_rates = phase("5 host", run_host, frames, world, cfg)
+    launches["reference_config"] = phase("6 reference config", run_reference, frames, world, cfg)
+    launches["mesh_nccl_1"], mesh_one = phase("7a mesh nccl", run_mesh_one_rank, frames, cfg,
+                                              slice_run, dev)
+    mesh_two = phase("7b mesh gloo", run_mesh_two_ranks, frames, world, cfg, slice_run, dev)
     for r, res in enumerate(mesh_two):
         launches[f"mesh_gloo_{MESH_RANKS}_rank{r}"] = res["launches"]
     timing = "; ".join(
@@ -859,12 +1031,21 @@ def main() -> int:
                        for k, v in res["schedules"].items())
            for r, res in enumerate(mesh_two)])
     log(f"mesh BA per BA run and slice walls, on {card}: {timing}")
-    dataset = run_dataset(frames, world, cfg, slice_run, slice_wall)
+    dataset = phase("8 dataset", run_dataset, frames, world, cfg, slice_run, slice_wall)
     launches["dataset"], launches["dataset_cli"] = dataset["launches"], dataset["cli_launches"]
     rates = dataset["decode_frames_per_s"]
     log(f"dataset on {card}: decode frames/s {rates} on {dataset['cpu_count']} CPUs; walls: "
         f"rolling from files {dataset['rolling_wall_s']:.3f} s, CLI {dataset['cli_wall_s']:.3f} s, "
         f"phase 4 {slice_wall:.3f} s")
+    # phases 9 and 11 render on one pool of processes, started once
+    with render_pool.Renderer() as renderer:
+        bench_launches, benched = phase("9 bench", run_bench_phase, cfg, renderer)
+        launches.update(bench_launches)
+        entry_launches, entry_points = phase("10 entry points", run_entry_points, cfg)
+        launches.update(entry_launches)
+        launches["soak"], soaked = phase("11 soak", run_short_soak, cfg, renderer)
+    walls["total"] = time.perf_counter() - t_start
+    log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
 
     src = {"fast_nms": ("stereo_visual_slam_tpu_torch/csrc/fast_nms.cu",
                         "stereo_visual_slam_tpu/ops/pallas/fast_kernel.py:96"),
@@ -883,7 +1064,8 @@ def main() -> int:
     g = measured["gather_patches"]
     print(json.dumps({"kernels": rows, "host_driver": host_rates,
                       "mesh": {"nccl_1_rank": mesh_one, f"gloo_{MESH_RANKS}_ranks": mesh_two},
-                      "dataset": dataset,
+                      "dataset": dataset, **benched, "entry_points": entry_points,
+                      "soak": soaked, "phase_walls_s": walls,
                       "brief_bit_flips": [g["brief_bit_flips"], g["brief_bits"]],
                       "steered_bit_flips": [g["steered_bit_flips"], g["brief_bits"]]}))
     print(card)

@@ -1,0 +1,282 @@
+"""Benchmark of the PyTorch port: full SLAM pipeline throughput on one card
+(counterpart of the repo's bench.py, with its workload, output and gates).
+
+    python -m stereo_visual_slam_tpu_torch.bench [chunk] [--device cuda]
+        [--params small.yaml] [--workers N]
+
+Prints ONE JSON line on stdout: {"metric", "value", "unit", "vs_baseline"}.
+
+Metric: frames per second of the production path (ChunkedSlam: tracking and
+the whole per-keyframe BA schedule) over a pre-rendered synthetic
+KITTI-geometry sequence (1241 x 376 stereo, fx=718.856; no KITTI data ships
+with the repo): 3 warm-up chunks, then the best of BENCH_RUNS staged runs
+(every chunk uploaded first, then dispatched), each on a fresh ChunkedSlam
+over the same staged buffers. vs_baseline compares that wall time with the
+C++ reference's published per-frame costs for the same keyframe mix; above
+1 is faster than the reference.
+
+On stderr: each run's wall, the per-chunk walls (p50/p90/max), syncs/frame
+and peak device memory of the best run, one streaming pass (live uploads,
+frame by frame) and one rolling pass (at most 8 chunks staged), and the
+accuracy of every synthetic profile against its binding gate:
+  * default - the timed run's clean corridor world;
+  * hard    - sensor noise and exposure drift, moving occluders, a
+    low-texture stretch, a sharp turn (BENCH_HARD_FRAMES, default 300,
+    seed 1; 0 skips);
+  * highway - ~2.7 m a frame, sparse roadside structure
+    (BENCH_HIGHWAY_FRAMES, default 200, seed 5; 0 skips).
+BENCH_DEGRADE=1 cripples PnP on purpose: the binding gates must FAIL.
+BENCH_CHUNKS (default 24) timed chunks of `chunk` (argv[1] or BENCH_CHUNK,
+default 8) frames.
+
+The port compiles nothing, so warm-up chunks take the place of the JAX
+bench's compile warm-up, and per-chunk walls on the host clock the place of
+its dispatch/fetch timers; it has no cost model, so no roofline is printed.
+Frames render on a process pool (data/render_pool), outside every timed
+section; each timed section ends in a device synchronize.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from stereo_visual_slam_tpu_torch.data import render_pool, synthetic
+from stereo_visual_slam_tpu_torch.ops import kernels
+from stereo_visual_slam_tpu_torch.pipeline import trajectory as traj_mod
+from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
+from stereo_visual_slam_tpu_torch.utils.config import Config
+
+# The C++ reference's published costs on its own CPU (its README.md:90):
+# 0.04 s per tracking-only frame and 0.18 s per keyframe. They are neither a
+# TPU's nor this card's numbers.
+REF_TRACK_S = 0.04
+REF_KEYFRAME_S = 0.18
+WARMUP_CHUNKS = 3
+ROLLING_WINDOW = 8
+
+# BINDING accuracy gates per profile, at ~1.5x the JAX package's measured
+# errors (default 0.93 % / 1.21 m, hard 0.43 % / 0.58 m, highway 0.65 % /
+# 2.84 m), so that a real regression flips them; the reference's published
+# seq-00 result (4.17 % trans) stays as a secondary parity line.
+GATES = {
+    "default": dict(trans=1.5, ate=2.0),
+    "hard": dict(trans=1.0, ate=1.0),
+    "highway": dict(trans=1.2, ate=4.5),
+}
+REF_PARITY_TRANS = 4.17
+PROFILE_SEEDS = {"hard": 1, "highway": 5}
+
+
+def binding_gate(profile: str, acc: dict) -> bool:
+    g = GATES[profile]
+    return not acc["lost"] and acc["trans"] <= g["trans"] and acc["ate"] <= g["ate"]
+
+
+def gate_verdict(profile: str, acc: dict) -> str:
+    g = GATES[profile]
+    parity = "PASS" if (not acc["lost"] and acc["trans"] <= REF_PARITY_TRANS) \
+        else "FAIL"
+    return (
+        f"gate trans<={g['trans']}% ate<={g['ate']}m: "
+        f"{'PASS' if binding_gate(profile, acc) else 'FAIL'} (reference-parity <=4.17%: {parity})"
+    )
+
+
+def degraded(cfg: Config) -> Config:
+    """The gate self-test: 8 PnP hypotheses, no refinement sweep and a
+    16 px inlier radius (the JAX bench's BENCH_DEGRADE)."""
+    return cfg.replace(pnp=dataclasses.replace(
+        cfg.pnp, n_hypotheses=8, gn_iters_refine=0, inlier_px=16.0))
+
+
+def reference_s(n_frames: int, n_keyframes: int) -> float:
+    """The C++ reference's time for this keyframe mix."""
+    return (n_frames - n_keyframes) * REF_TRACK_S + n_keyframes * REF_KEYFRAME_S
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def accuracy(slam, world) -> dict:
+    fids = sorted(slam.estimates)
+    est = np.stack([slam.estimates[f] for f in fids])
+    gt = world.poses_T_c_w[fids]
+    t_err, r_err = traj_mod.kitti_errors(est, gt)
+    return dict(ate=traj_mod.ate_rmse(est, gt), trans=t_err, rot=r_err,
+                tracked=sum(1 for s in slam.stats if s["state"] == "tracked"),
+                lost=slam.lost)
+
+
+def run_sequence(cfg, world, frames, chunk, device):
+    """One staged run of a pre-rendered sequence: (slam, accuracy)."""
+    slam = ChunkedSlam(cfg, chunk=chunk, device=device)
+    slam.run(frames)
+    slam.finish()
+    return slam, accuracy(slam, world)
+
+
+def _launches_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in kernels.launch_counts().items()}
+
+
+def _counts(slams) -> dict:
+    return dict(frames=sum(len(s.stats) for s in slams),
+                keyframes=sum(sum(1 for r in s.stats if r["keyframe"]) for s in slams))
+
+
+def _stderr(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def run_bench(cfg: Config, *, device, renderer: render_pool.Renderer, chunk: int = 8,
+              n_chunks: int = 24, runs: int = 2, hard_frames: int = 300,
+              highway_frames: int = 200, log=_stderr) -> dict:
+    """The whole benchmark on `cfg`, its frames rendered by `renderer`.
+    Returns {"line": the JSON line's dict, "profiles": {name: accuracy,
+    verdict, gate, kernel launches and the frames and keyframes run},
+    "timed", "streaming", "rolling": walls}."""
+    device = torch.device(device)
+    stager = ChunkedSlam(cfg, chunk=chunk, device=device)   # raises without a card
+    n_frames = chunk * (WARMUP_CHUNKS + n_chunks)
+    warm = chunk * WARMUP_CHUNKS
+    t0 = time.perf_counter()
+    world = synthetic.make_world(cfg, n_frames=n_frames, n_points=8000, seed=0)
+    frames = renderer.render_all(world)
+    log(f"# render: {n_frames} frames in {time.perf_counter() - t0:.1f}s on "
+        f"{renderer.workers} workers (not timed)")
+
+    before = kernels.launch_counts()
+    warm_bufs = stager.stage(frames[:warm])
+    timed_bufs = stager.stage(frames[warm:])
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    best, slams = None, []
+    for run_i in range(runs):
+        slam = ChunkedSlam(cfg, chunk=chunk, device=device)
+        slam.run_staged(warm_bufs)   # BA live, the allocator warm
+        _sync(device)
+        syncs0 = slam.syncs
+        walls = []
+        t0 = time.perf_counter()
+        for buf in timed_bufs:   # one chunk at a time: the per-chunk walls
+            tc = time.perf_counter()
+            slam.run_staged([buf])
+            _sync(device)
+            walls.append(time.perf_counter() - tc)
+        slam.finish()
+        _sync(device)
+        t_run = time.perf_counter() - t0
+        slams.append(slam)
+        log(f"# run {run_i} (staged): timed section {t_run:.2f}s")
+        if best is None or t_run < best[1]:
+            best = (slam, t_run, walls, slam.syncs - syncs0)
+    slam, t_timed, walls, syncs = best
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+    passes = {}
+    for name in ("streaming", "rolling"):
+        s = ChunkedSlam(cfg, chunk=chunk, device=device)
+        s.run(frames[:warm])
+        _sync(device)
+        t0 = time.perf_counter()
+        if name == "streaming":
+            s.run(frames[warm:], stage=False)
+        else:
+            s.run_rolling(frames[warm:], window_chunks=ROLLING_WINDOW)
+        s.finish()
+        _sync(device)
+        t = time.perf_counter() - t0
+        slams.append(s)
+        n = len(frames) - warm
+        passes[name] = dict(wall_s=t, frames_per_s=n / t)
+        what = ("live uploads, frame by frame" if name == "streaming"
+                else f"bounded stage-ahead, {ROLLING_WINDOW} chunks on the device")
+        log(f"# {name} ({what}): {t:.2f}s = {t / n * 1e3:.1f} ms/frame ({n / t:.1f} frames/s)")
+
+    timed = [s for s in slam.stats if s["frame_id"] >= warm]
+    n_timed = len(timed)
+    n_kf_timed = sum(1 for s in timed if s["keyframe"])
+    acc = accuracy(slam, world)
+    profiles = {"default": dict(acc, verdict=gate_verdict("default", acc),
+                                gate=binding_gate("default", acc),
+                                launches=_launches_since(before), **_counts(slams))}
+    fps = n_timed / t_timed if t_timed > 0 else 0.0
+    ref_time = reference_s(n_timed, n_kf_timed)
+    log(f"# default profile: tracked {acc['tracked']}/{n_frames} ate={acc['ate']:.3f}m "
+        f"trans={acc['trans']:.2f}% rot={acc['rot']:.4f}deg/m | timed: {n_timed} frames "
+        f"({n_kf_timed} kf) in {t_timed:.2f}s (reference would take {ref_time:.2f}s for this "
+        f"mix) | {profiles['default']['verdict']}")
+    ms = np.asarray(walls) * 1e3
+    p50, p90 = np.percentile(ms, [50, 90])
+    peak_text = (f"{peak / 2**20:.1f} MiB" if peak is not None
+                 else f"not measured (device {device.type})")
+    log(f"# per-chunk wall (ms, {len(ms)} chunks of {chunk}): p50={p50:.1f} p90={p90:.1f} "
+        f"max={ms.max():.1f} sum={ms.sum() / 1e3:.2f}s | syncs/frame {syncs / n_timed:.3f} | "
+        f"peak device memory {peak_text}")
+
+    for profile, n_prof in (("hard", hard_frames), ("highway", highway_frames)):
+        if n_prof <= 0:
+            continue
+        world_p = synthetic.make_world(cfg, n_frames=n_prof, n_points=8000,
+                                       seed=PROFILE_SEEDS[profile], profile=profile)
+        frames_p = renderer.render_all(world_p)
+        before = kernels.launch_counts()
+        slam_p, acc_p = run_sequence(cfg, world_p, frames_p, chunk, device)
+        _sync(device)
+        profiles[profile] = dict(acc_p, verdict=gate_verdict(profile, acc_p),
+                                 gate=binding_gate(profile, acc_p),
+                                 launches=_launches_since(before), **_counts([slam_p]))
+        log(f"# {profile} profile ({n_prof} frames): tracked {acc_p['tracked']}/{n_prof} "
+            f"ate={acc_p['ate']:.3f}m trans={acc_p['trans']:.2f}% rot={acc_p['rot']:.4f}deg/m "
+            f"lost={acc_p['lost']} | {profiles[profile]['verdict']}")
+
+    line = {"metric": "frames_per_s", "value": round(fps, 3), "unit": "frames/s",
+            "vs_baseline": round(ref_time / t_timed, 3) if t_timed else 0.0}
+    return dict(line=line, profiles=profiles, **passes, timed=dict(
+        frames=n_timed, keyframes=n_kf_timed, wall_s=t_timed, chunk_wall_ms=dict(
+            p50=float(p50), p90=float(p90), max=float(ms.max())),
+        syncs_per_frame=syncs / n_timed, peak_bytes=peak))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("chunk", nargs="?", type=int,
+                   default=int(os.environ.get("BENCH_CHUNK", "8")))
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--params", help="YAML config overrides (needs pyyaml)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="render processes (default: one per CPU but one; 0: in-process)")
+    args = p.parse_args(argv)
+    cfg = Config()
+    if args.params:
+        from stereo_visual_slam_tpu_torch.utils import config_io
+
+        cfg = config_io.config_from_yaml(args.params, cfg)
+    if os.environ.get("BENCH_DEGRADE"):
+        cfg = degraded(cfg)
+        print("# BENCH_DEGRADE: PnP crippled on purpose - binding gates must FAIL",
+              file=sys.stderr)
+    env = os.environ
+    with render_pool.Renderer(args.workers) as renderer:
+        out = run_bench(
+            cfg, device=args.device, renderer=renderer, chunk=args.chunk,
+            n_chunks=int(env.get("BENCH_CHUNKS", "24")), runs=int(env.get("BENCH_RUNS", "2")),
+            hard_frames=int(env.get("BENCH_HARD_FRAMES", "300")),
+            highway_frames=int(env.get("BENCH_HIGHWAY_FRAMES", "200")))
+    print(json.dumps(out["line"]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

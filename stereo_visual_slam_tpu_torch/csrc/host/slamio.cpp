@@ -86,14 +86,43 @@ int paeth(int a, int b, int c) {
   return pb <= pc ? b : c;
 }
 
+// An IHDR chunk's `len` bytes at `data`: the size and bit depth of a kind
+// the decoder reads, or false with the reason it refuses the image.
+bool parse_ihdr(uint32_t len, const uint8_t* data, uint32_t* w, uint32_t* h, int* depth) {
+  if (len != 13) return fail("bad PNG header");
+  *w = be32(data);
+  *h = be32(data + 4);
+  *depth = data[8];
+  int color = data[9];
+  if (*w == 0 || *h == 0 || *w > kPngMaxSide || *h > kPngMaxSide)
+    return fail("bad PNG size " + std::to_string(*w) + "x" + std::to_string(*h));
+  if (color != 0)
+    return fail("unsupported PNG colour type " + std::to_string(color) + " (" +
+                png_color_name(color) + "): only grayscale decodes");
+  if (*depth != 8 && *depth != 16)
+    return fail("unsupported PNG bit depth " + std::to_string(*depth) +
+                ": only 8- and 16-bit grayscale decode");
+  if (data[10] != 0 || data[11] != 0) return fail("bad PNG compression or filter method");
+  if (data[12] != 0) return fail("unsupported interlaced PNG");
+  return true;
+}
+
+// The file's size in bytes, leaving it at its start.
+bool file_size(FILE* fp, size_t* size) {
+  if (std::fseek(fp, 0, SEEK_END) != 0) return fail("cannot read the file");
+  const long n = std::ftell(fp);
+  if (n < 0 || std::fseek(fp, 0, SEEK_SET) != 0) return fail("cannot read the file");
+  *size = static_cast<size_t>(n);
+  return true;
+}
+
 // 8- or 16-bit grayscale, non-interlaced PNG -> 8-bit gray. The critical
 // chunks' CRCs are checked and ancillary chunks skipped, as libpng does by
 // default; a 16-bit sample keeps its high byte (libpng's png_set_strip_16).
 bool decode_png_gray(FILE* fp, GrayImage* out) {
-  if (std::fseek(fp, 0, SEEK_END) != 0) return fail("cannot read the file");
-  const long size = std::ftell(fp);
-  if (size < 0 || std::fseek(fp, 0, SEEK_SET) != 0) return fail("cannot read the file");
-  std::vector<uint8_t> file(static_cast<size_t>(size));
+  size_t size = 0;
+  if (!file_size(fp, &size)) return false;
+  std::vector<uint8_t> file(size);
   if (std::fread(file.data(), 1, file.size(), fp) != file.size()) return fail("short read");
   if (file.size() < 8 || std::memcmp(file.data(), kPngSignature, 8) != 0)
     return fail("not a PNG file");
@@ -113,21 +142,8 @@ bool decode_png_gray(FILE* fp, GrayImage* out) {
     if (critical && crc32(0L, type, len + 4) != be32(data + len))
       return fail("CRC error in PNG chunk " + std::string(reinterpret_cast<const char*>(type), 4));
     if (std::memcmp(type, "IHDR", 4) == 0) {
-      if (len != 13 || have_header) return fail("bad PNG header");
-      w = be32(data);
-      h = be32(data + 4);
-      depth = data[8];
-      int color = data[9];
-      if (w == 0 || h == 0 || w > kPngMaxSide || h > kPngMaxSide)
-        return fail("bad PNG size " + std::to_string(w) + "x" + std::to_string(h));
-      if (color != 0)
-        return fail("unsupported PNG colour type " + std::to_string(color) + " (" +
-                    png_color_name(color) + "): only grayscale decodes");
-      if (depth != 8 && depth != 16)
-        return fail("unsupported PNG bit depth " + std::to_string(depth) +
-                    ": only 8- and 16-bit grayscale decode");
-      if (data[10] != 0 || data[11] != 0) return fail("bad PNG compression or filter method");
-      if (data[12] != 0) return fail("unsupported interlaced PNG");
+      if (have_header) return fail("bad PNG header");
+      if (!parse_ihdr(len, data, &w, &h, &depth)) return false;
       have_header = true;
     } else if (!have_header) {
       return fail("PNG without a header");
@@ -198,8 +214,38 @@ bool decode_png_gray(FILE* fp, GrayImage* out) {
   return true;
 }
 
-// Minimal binary PGM (P5) reader, 8-bit maxval.
-bool decode_pgm_gray(FILE* fp, GrayImage* out) {
+// A PNG's size from its signature and first chunk alone, which must be the
+// header: that chunk gets decode_png_gray's checks, in its order and with
+// its reasons. The image data is not read.
+bool probe_png_gray(FILE* fp, int* h, int* w) {
+  size_t size = 0;
+  if (!file_size(fp, &size)) return false;
+  uint8_t head[16];  // the signature, then the first chunk's length and type
+  if (size < 8 || std::fread(head, 1, 8, fp) != 8 || std::memcmp(head, kPngSignature, 8) != 0)
+    return fail("not a PNG file");
+  if (size - 8 < 12) return fail("truncated PNG");
+  if (std::fread(head + 8, 1, 8, fp) != 8) return fail("short read");
+  const uint32_t len = be32(head + 8);
+  if (len > size - 8 - 12) return fail("truncated PNG chunk");
+  std::vector<uint8_t> chunk(size_t(len) + 8);  // type, data, CRC
+  std::memcpy(chunk.data(), head + 12, 4);
+  if (std::fread(chunk.data() + 4, 1, size_t(len) + 4, fp) != size_t(len) + 4)
+    return fail("short read");
+  const uint8_t* type = chunk.data();
+  const uint8_t* data = type + 4;
+  if (!(type[0] & 0x20) && crc32(0L, type, len + 4) != be32(data + len))
+    return fail("CRC error in PNG chunk " + std::string(reinterpret_cast<const char*>(type), 4));
+  if (std::memcmp(type, "IHDR", 4) != 0) return fail("PNG without a header");
+  uint32_t pw = 0, ph = 0;
+  int depth = 0;
+  if (!parse_ihdr(len, data, &pw, &ph, &depth)) return false;
+  *h = static_cast<int>(ph);
+  *w = static_cast<int>(pw);
+  return true;
+}
+
+// A binary PGM's header: its size, or the reason it is refused.
+bool read_pgm_header(FILE* fp, long* w, long* h) {
   auto skip_ws = [&]() {
     int c;
     while ((c = fgetc(fp)) != EOF) {
@@ -225,8 +271,17 @@ bool decode_pgm_gray(FILE* fp, GrayImage* out) {
   char magic[3] = {0, 0, 0};
   if (fread(magic, 1, 2, fp) != 2 || magic[0] != 'P' || magic[1] != '5')
     return fail("not a binary PGM file");
-  long w = read_int(), h = read_int(), maxv = read_int();
-  if (w <= 0 || h <= 0 || maxv <= 0 || maxv > 255) return fail("bad or 16-bit PGM header");
+  *w = read_int();
+  *h = read_int();
+  long maxv = read_int();
+  if (*w <= 0 || *h <= 0 || maxv <= 0 || maxv > 255) return fail("bad or 16-bit PGM header");
+  return true;
+}
+
+// Minimal binary PGM (P5) reader, 8-bit maxval.
+bool decode_pgm_gray(FILE* fp, GrayImage* out) {
+  long w = 0, h = 0;
+  if (!read_pgm_header(fp, &w, &h)) return false;
   out->h = static_cast<int>(h);
   out->w = static_cast<int>(w);
   out->pix.resize(static_cast<size_t>(h) * w);
@@ -235,7 +290,10 @@ bool decode_pgm_gray(FILE* fp, GrayImage* out) {
   return true;
 }
 
-bool read_gray(const char* path, GrayImage* out) {
+// Opens `path` and hands it to `png` or `pgm` by its signature; a failure's
+// reason gets the path in front.
+template <typename Png, typename Pgm>
+bool with_gray_file(const char* path, Png png, Pgm pgm) {
   FILE* fp = fopen(path, "rb");
   if (!fp) return fail(std::string(path) + ": cannot open");
   uint8_t sig[8];
@@ -243,15 +301,34 @@ bool read_gray(const char* path, GrayImage* out) {
   rewind(fp);
   bool ok = false;
   if (n >= 8 && !std::memcmp(sig, kPngSignature, 8)) {
-    ok = decode_png_gray(fp, out);
+    ok = png(fp);
   } else if (n >= 2 && sig[0] == 'P' && sig[1] == '5') {
-    ok = decode_pgm_gray(fp, out);
+    ok = pgm(fp);
   } else {
     fail("neither a PNG nor a binary PGM file");
   }
   fclose(fp);
   if (!ok) g_error = std::string(path) + ": " + g_error;
   return ok;
+}
+
+bool read_gray(const char* path, GrayImage* out) {
+  return with_gray_file(
+      path, [&](FILE* fp) { return decode_png_gray(fp, out); },
+      [&](FILE* fp) { return decode_pgm_gray(fp, out); });
+}
+
+// The image's size from its header alone.
+bool probe_gray(const char* path, int* h, int* w) {
+  return with_gray_file(
+      path, [&](FILE* fp) { return probe_png_gray(fp, h, w); },
+      [&](FILE* fp) {
+        long pw = 0, ph = 0;
+        if (!read_pgm_header(fp, &pw, &ph)) return false;
+        *h = static_cast<int>(ph);
+        *w = static_cast<int>(pw);
+        return true;
+      });
 }
 
 }  // namespace
@@ -262,13 +339,10 @@ SIO_API int sio_version() { return 1; }
 // failed frame counts as the consumer's).
 SIO_API const char* sio_last_error() { return g_error.c_str(); }
 
-// Probe image dimensions without (fully) decoding. -1: unreadable.
+// Image dimensions from the header alone: the image data is neither read
+// nor checked. -1: unreadable, or a kind the decoder refuses.
 SIO_API int sio_probe_image(const char* path, int* h, int* w) {
-  GrayImage img;
-  if (!read_gray(path, &img)) return -1;
-  *h = img.h;
-  *w = img.w;
-  return 0;
+  return probe_gray(path, h, w) ? 0 : -1;
 }
 
 // Decode into caller buffer of capacity max_h*max_w. Returns 0, or -1 on

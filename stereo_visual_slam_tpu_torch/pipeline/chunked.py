@@ -45,13 +45,16 @@ NoiseFn = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
 
 def _to_host(records: List[slam_core.FrameRecord]) -> List[dict]:
     """All tensor fields of a chunk's records to the host with one sync:
-    non-blocking copies into pinned memory, then one stream synchronize."""
+    non-blocking copies into pinned memory, then one synchronize of the
+    stream they were queued on (the records' device's, which need not be
+    the current device)."""
     fields = [f for f in slam_core.FrameRecord._fields
               if torch.is_tensor(getattr(records[0], f))]
     stacked = {f: torch.stack([getattr(r, f) for r in records]) for f in fields}
     host = {f: t.to("cpu", non_blocking=True) for f, t in stacked.items()}
-    if next(iter(stacked.values())).is_cuda:
-        torch.cuda.current_stream().synchronize()
+    first = next(iter(stacked.values()))
+    if first.is_cuda:
+        torch.cuda.current_stream(first.device).synchronize()
     out = []
     for i, r in enumerate(records):
         row = {f: host[f][i].numpy() for f in fields}
@@ -121,6 +124,9 @@ class ChunkedSlam:
         self.pending: List[Tuple[int, np.ndarray, np.ndarray]] = []
         self.estimates: Dict[int, np.ndarray] = {}
         self.stats: List[dict] = []
+        # (frame_id, T_c_w) of each keyframe evicted from the window, in
+        # order (the JAX ChunkedSlam's `_evictions`)
+        self.evictions: List[Tuple[int, np.ndarray]] = []
         self.lost = False
         self.closed = False
 
@@ -264,6 +270,7 @@ class ChunkedSlam:
             if row["evict_valid"]:
                 efid = int(row["evict_frame_id"])
                 eT = row["evict_T"].copy()
+                self.evictions.append((efid, eT))
                 self.estimates[efid] = eT
                 if self.writer is not None:
                     self.writer.write(efid, eT)

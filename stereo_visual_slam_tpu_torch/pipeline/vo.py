@@ -61,6 +61,14 @@ class TrackState(enum.Enum):
     LOST = 2
 
 
+def _event_on(device: torch.device) -> "torch.cuda.Event":
+    """An event recorded on `device`'s current stream, where that device's
+    work was queued (the current device may be another card)."""
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 class _Fetch:
     """A non-blocking device-to-host copy and the event that marks its end
     (no event on the CPU, where the copy is the tensor itself)."""
@@ -68,8 +76,7 @@ class _Fetch:
     def __init__(self, t: torch.Tensor):
         if t.is_cuda:
             self.host = t.to("cpu", non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            self.event = _event_on(t.device)
         else:
             self.host, self.event = t, None
 
@@ -163,8 +170,7 @@ class VisualOdometry:
         host[0, :h, :w] = left
         host[1, :h, :w] = right
         images = buf.to(self.device, non_blocking=True)
-        slot[1] = torch.cuda.Event()
-        slot[1].record()
+        slot[1] = _event_on(self.device)
         return images
 
     def _wait(self, fetch: _Fetch) -> np.ndarray:

@@ -209,6 +209,8 @@ def _u8(a):
 
 
 def probe_image(path: str) -> Tuple[int, int]:
+    """(h, w) from the image's header, without decoding it (a kind the
+    decoder refuses raises here already)."""
     lib = _require()
     h = ctypes.c_int()
     w = ctypes.c_int()
@@ -218,7 +220,8 @@ def probe_image(path: str) -> Tuple[int, int]:
 
 
 def read_image_gray(path: str) -> np.ndarray:
-    """Decode a grayscale PNG/PGM via the native library."""
+    """Decode a grayscale PNG/PGM via the native library (once: the probe
+    that sizes the buffer reads the header only)."""
     lib = _require()
     h, w = probe_image(path)
     buf = np.empty((h, w), dtype=np.uint8)

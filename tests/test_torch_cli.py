@@ -1,7 +1,8 @@
 """The port's command line (`stereo_visual_slam_tpu_torch.run_vslam`) on
 the CPU: both drivers, the rolling dataset mode, YAML overrides, the
 record / PLY / plot outputs, snapshots and resume, and a KITTI-layout
-dataset. Every run takes small_config through `--params`."""
+dataset; and the synthetic example (`run_synthetic`). Every run takes
+small_config through `--params`."""
 
 import dataclasses
 import json
@@ -10,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from stereo_visual_slam_tpu_torch import run_vslam
+from stereo_visual_slam_tpu_torch import run_synthetic, run_vslam
 from stereo_visual_slam_tpu_torch.data import synthetic
 from stereo_visual_slam_tpu_torch.pipeline import trajectory as traj_mod
 from stereo_visual_slam_tpu_torch.utils import config_io
@@ -154,3 +155,27 @@ def test_dataset_mini_kitti(mini_kitti, params, tmp_path, capsys, driver):
 
 def test_cli_needs_a_source():
     assert cli() == 2
+
+
+def test_run_synthetic_example(params, tmp_path, monkeypatch, capsys):
+    import tempfile
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    assert run_synthetic.main(["6", "--device", "cpu", "--params", params]) == 0
+    out = capsys.readouterr().out
+    assert "frame    0 init" in out and "frame    1 tracked" in out
+    for what in ("tracked 6/6 frames", "ATE RMSE: ", "KITTI-style: trans ",
+                 "mean keyframe time: ",
+                 'kernel launches: {"fast_nms": 0, "gather_patches": 0, "zncc_sweep": 0}'):
+        assert what in out, what
+    rows = traj_mod.read_trajectory(str(tmp_path / "synthetic_traj.txt"))
+    assert 0 in rows and len(rows) >= 4
+
+
+def test_run_synthetic_needs_a_card_unless_asked_for_the_cpu(params):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_synthetic.main(["2", "--params", params])

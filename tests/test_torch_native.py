@@ -118,6 +118,41 @@ def test_probe_and_bad_file(tmp_path):
         native.read_image_gray(bad)
 
 
+def _corrupt_png(arr, case):
+    """A PNG of `arr` whose image data is broken: its IDAT CRC does not
+    match ("crc"), or the CRC matches data that do not inflate ("inflate")."""
+    import struct
+    import zlib
+
+    png = _chip_smoke().png_bytes(arr)
+    at = png.index(b"IDAT")
+    n = struct.unpack(">I", png[at - 4:at])[0]
+    data = bytearray(png[at + 4:at + 4 + n])
+    data[2:] = bytes(len(data) - 2)   # keep the zlib header, zero the stream
+    crc = zlib.crc32(b"IDAT" + data) ^ (0 if case == "inflate" else 1)
+    return png[:at + 4] + bytes(data) + struct.pack(">I", crc) + png[at + 8 + n:]
+
+
+@pytest.mark.parametrize("case, reason", [
+    ("crc", "CRC error in PNG chunk IDAT"),
+    ("inflate", "corrupt or short PNG image data"),
+    ("pgm", "truncated PGM"),
+])
+def test_probe_reads_the_header_only(tmp_path, case, reason):
+    """The probe gives the size from the header and never touches the image
+    data, so an image whose data is broken probes fine and fails to decode:
+    read_image_gray decodes each image once."""
+    arr = np.random.default_rng(2).integers(0, 256, size=(21, 34), dtype=np.uint8)
+    p = tmp_path / ("x.pgm" if case == "pgm" else "x.png")
+    if case == "pgm":
+        p.write_bytes(f"P5\n34 21\n255\n".encode() + arr.tobytes()[:-5])
+    else:
+        p.write_bytes(_corrupt_png(arr, case))
+    assert native.probe_image(str(p)) == (21, 34)
+    with pytest.raises(IOError, match=re.escape(reason)):
+        native.read_image_gray(str(p))
+
+
 @pytest.mark.parametrize("level", (0, 6, 9))
 @pytest.mark.parametrize("first", range(5), ids=("none", "sub", "up", "average", "paeth"))
 def test_png_writer_every_filter_read_back(tmp_path, libpng_read, first, level):
@@ -168,6 +203,8 @@ def test_decoder_refuses_other_png_kinds(tmp_path, libpng_read, mode, reason):
         Image.fromarray(gray).convert(mode).save(p)
     with pytest.raises(IOError, match=re.escape(reason)):
         native.read_image_gray(str(p))
+    with pytest.raises(IOError, match=re.escape(reason)):   # from the header alone
+        native.probe_image(str(p))
     libpng = libpng_read(p)
     if mode == "interlaced":
         np.testing.assert_array_equal(libpng, gray)

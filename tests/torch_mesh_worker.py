@@ -2,7 +2,7 @@
 (tests/test_torch_dist_ba.py, tests/test_torch_chunked_mesh.py).
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=localhost MASTER_PORT=p \
-        python tests/torch_mesh_worker.py {ba|chunked} in.npz out_dir
+        python tests/torch_mesh_worker.py {ba|chunked|dryrun} in.npz out_dir
 
 Joins an n-rank gloo group from torchrun's environment, runs the job on
 the inputs the test wrote, and saves what it computed to
@@ -24,6 +24,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from stereo_visual_slam_tpu_torch import graft_entry  # noqa: E402
 from stereo_visual_slam_tpu_torch.ba import pose_only, schedule, schur_lm  # noqa: E402
 from stereo_visual_slam_tpu_torch.models import slam_core  # noqa: E402
 from stereo_visual_slam_tpu_torch.parallel import dist_ba  # noqa: E402
@@ -105,6 +106,18 @@ def chunked_job(z, mesh):
     return out
 
 
+def dryrun_job(z, mesh):
+    """graft_entry.dryrun_multichip on this mesh, at small_config with the
+    principal point at the image centre."""
+    import dataclasses
+
+    cfg = small_config(128, 256)
+    cfg = cfg.replace(camera=dataclasses.replace(cfg.camera, cx=128.0, cy=64.0))
+    out = graft_entry.dryrun_multichip(mesh.size, "cpu", cfg, n_frames=int(z["n_frames"]),
+                                       chunk=int(z["chunk"]), n_points=int(z["n_points"]))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -154,7 +167,7 @@ def main():
         mesh = dist_utils.make_landmark_mesh()
         with np.load(inp) as f:
             z = dict(f)
-        out = {"ba": ba_job, "chunked": chunked_job}[job](z, mesh)
+        out = {"ba": ba_job, "chunked": chunked_job, "dryrun": dryrun_job}[job](z, mesh)
         # a mesh over the first half of the ranks; the others hold none
         sub = dist_utils.make_landmark_mesh(max(1, mesh.size // 2))
         out["sub_mesh"] = np.array([-1, -1] if sub is None else
