@@ -59,7 +59,16 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
      stereo_visual_slam_tpu_torch.run_synthetic 16 --device cuda` as a
      process (exit 0, every frame tracked; it prints its launch counts);
  11. a 512-frame soak (soak.run_soak): every check passes (the pace check
-     needs 8 marks of 512 frames and skips), keyframes were evicted.
+     needs 8 marks of 512 frames and skips), keyframes were evicted;
+ 12. the profilers (stereo_visual_slam_tpu_torch/profiling/), short: the
+     method's floor, the production table on phase 4's first chunk, the
+     tracking scan split, the window growth and shard-local tables at one
+     window each and the sharded schedule on one NCCL rank. Every row's
+     device time is > 0 and <= its wall x 1.05; the FAST+NMS, patch
+     gather and ZNCC kernels appear, by the names the profiler prints, in
+     the detect, describe and stereo rows; the extractor's stage walls sum
+     to <= batch_extract's x 1.25; matcher + PnP <= track_step x 1.25; the
+     one-rank schedule is bit-equal to no mesh.
 Each path's kernel launches are counted from 0 just before it runs; on the
 paths of phases 9-11 FAST+NMS and the patch gather launch at least once a
 frame and ZNCC at least once a keyframe. Each phase's wall is logged.
@@ -98,6 +107,7 @@ MESH_RANKS = 2
 # window-growth test (tests/test_parallel.py::test_sharded_schedule_large_window)
 MESH_WINDOWS = ((10, 4096), (20, 8192))
 SCHEDULE_REPS = 5
+WINDOW_SEED = 3             # phase 7's windows (profiling/window.make_window)
 MESH_POSE_BOUND_M = 5e-2   # per frame, as tests/test_parallel.py
 MESH_TIMEOUT_S = 480       # phase 7(b) as a whole, both ranks
 DATASET_WINDOW = 4         # phase 8's run_rolling window, as `run_vslam --rolling 4`
@@ -110,6 +120,14 @@ BENCH_HIGHWAY_FRAMES = 96
 DEGRADE_CHUNKS = 24        # the full bench's timed chunks, for phase 9's degraded run
 SYNTHETIC_FRAMES = 16      # phase 10's run_synthetic
 SOAK_FRAMES = 512          # phase 11
+# phase 12: the profilers' lengths (the full tables run at the JAX tools' r)
+PROFILE_R = 2
+PROFILE_BEST_OF = 3          # the rows the checks compare; a single run's wall can double
+PROFILE_WINDOW_BEST_OF = 1   # the BA rows: only their device time is checked
+PROFILE_COMPOSED_R = 1       # chunk_step and the feats scan, ~1 s an iteration
+PROFILE_FLOOR_R = 20
+DEVICE_OVER_WALL = 1.05      # a row's device time may exceed its wall by this
+STAGES_OVER_WHOLE = 1.25     # sub-stage walls against the composed row's
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
@@ -408,46 +426,18 @@ def run_reference(frames, world, cfg):
     return launches
 
 
-def make_window(cfg, nK, L, dev, seed=3):
-    """A driving window on the port: L landmarks ahead of nK keyframes on a
-    straight road, the observations with 0.5 px noise, the points with 5 cm
-    (the JAX package's tools/scaling_bench.make_window)."""
-    from stereo_visual_slam_tpu_torch.ba.schedule import ScheduleInput
-    from stereo_visual_slam_tpu_torch.geom import se3
-
-    cam = cfg.camera
-    rng = np.random.default_rng(seed)
-    pts = np.stack([rng.uniform(-20, 20, L), rng.uniform(-5, 5, L),
-                    rng.uniform(10, 80 + nK, L)], axis=-1).astype(np.float32)
-    T = se3.exp(torch.tensor([[0.02 * k, 0.0, -1.0 * k, 0.0, 0.004 * k, 0.0]
-                              for k in range(nK)], dtype=torch.float32)).numpy()
-    Xc = np.einsum("kij,lj->lki", T[:, :3, :3], pts) + T[:, :3, 3][None]
-    z = np.maximum(Xc[..., 2], 1e-3)
-    uv = np.stack([cam.fx * Xc[..., 0] / z + cam.cx, cam.fy * Xc[..., 1] / z + cam.cy],
-                  axis=-1).astype(np.float32)
-    uv += rng.normal(0, 0.5, uv.shape).astype(np.float32)
-    ones = np.ones(L, np.float32)
-    fixed = np.zeros(nK, np.float32)
-    fixed[0] = 1.0
-    arrays = dict(T_c_w=T, points=pts + rng.normal(0, 0.05, pts.shape).astype(np.float32),
-                  uv=uv, obs_mask=(Xc[..., 2] > 1.0).astype(np.float32), inlier=ones,
-                  reliable=ones, present=ones, pose_mask=np.ones(nK, np.float32),
-                  fixed_pose=fixed)
-    K = torch.tensor([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]], dtype=torch.float32)
-    return ScheduleInput(**{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}), K.to(dev)
-
-
 def compare_schedules(cfg, mesh, dev, exact):
     """The BA schedule on `mesh` against the single-device schedule at each
     window of MESH_WINDOWS: the gap, and each one's median ms per run over
     SCHEDULE_REPS runs taken in turns. `exact`: bit-equal required."""
     from stereo_visual_slam_tpu_torch.ba import schedule as ba_schedule
+    from stereo_visual_slam_tpu_torch.profiling import window
 
     single = ba_schedule.make_ba_schedule(cfg.ba)
     sharded = ba_schedule.make_ba_schedule(cfg.ba, mesh=mesh)
     out = {}
     for nK, L in MESH_WINDOWS:
-        inp, K = make_window(cfg, nK, L, dev)
+        inp, K = window.make_window(L, nK, seed=WINDOW_SEED, device=dev, camera=cfg.camera)
         a, b = single(inp, K), sharded(inp, K)   # also the warm-up
         sync()
         t_err = float((a.T_c_w - b.T_c_w).abs().max())
@@ -980,6 +970,86 @@ def run_short_soak(cfg, renderer):
     return launches, out
 
 
+def run_profilers(cfg, frames, dev):
+    """Phase 12: the four profilers at short lengths, on phase 4's first
+    chunk, with their checks."""
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.profiling import production, scan_split, timing, window
+
+    images = production.pack(cfg, frames[:production.B], dev)
+    out, launches = {}, {}
+    out["timing"] = timing.run(cfg, dev, r=PROFILE_FLOOR_R, best_of=PROFILE_BEST_OF)
+    for name, run in (
+            ("production", lambda: production.run(
+                cfg, dev, r=PROFILE_R, best_of=PROFILE_BEST_OF, composed_r=PROFILE_COMPOSED_R,
+                images=images)),
+            ("scan_split", lambda: scan_split.run(cfg, dev, r=PROFILE_R, best_of=PROFILE_BEST_OF,
+                                                  images=images)),
+            ("window", lambda: window.run(
+                cfg, dev, r=PROFILE_R, best_of=PROFILE_WINDOW_BEST_OF,
+                growth_windows=MESH_WINDOWS[:1],
+                shard_windows=MESH_WINDOWS[1:], scaling_L=MESH_WINDOWS[0][1],
+                scaling_windows=MESH_WINDOWS[:1], cpu=False))):
+        kernels.reset_launch_counts()
+        sync()
+        out[name] = run()
+        sync()
+        launches[f"profile_{name}"] = kernels.launch_counts()
+    for name in ("timing", "production", "scan_split"):
+        log(f"profile {name}:")
+        log(timing.table(out[name]["rows"]))
+    win = out["window"]
+    rows = (out["timing"]["rows"] + out["production"]["rows"] + out["scan_split"]["rows"]
+            + win["growth"] + win["shard_local"] + win["scaling"]["nccl"])
+    log(timing.table(win["growth"] + win["shard_local"] + win["scaling"]["nccl"]))
+    log(f"profile launches of the port's kernels: {launches}; the measurement's own cost: "
+        f"{sum(r['timed_s'] for r in rows):.1f} s timed, {sum(r['traced_s'] for r in rows):.1f} s "
+        f"traced")
+
+    bad = [(r["label"], r["device_ms"], r["wall_ms"]) for r in rows
+           if not 0 < r["device_ms"] <= r["wall_ms"] * DEVICE_OVER_WALL]
+    if bad:
+        raise AssertionError(f"phase 12: device ms outside (0, wall x {DEVICE_OVER_WALL}]: {bad}")
+    prod = {r["label"].strip(): r for r in out["production"]["rows"]}
+    n = cfg.frontend.n_levels
+    in_rows = []
+    for label, kernel in (("detect: score maps + nms_topk", "fast_nms"),
+                          (f"describe ({n} levels)", "gather_patches"),
+                          ("stereo zncc sweep", "zncc_sweep")):
+        seen = prod[label]["hand_kernels"][kernel]
+        if not seen["launches"] > 0:
+            raise AssertionError(f"phase 12: no {timing.HAND_KERNELS[kernel]} in the profile of "
+                                 f"the {label!r} row: {prod[label]['top_ops']}")
+        in_rows.append(f"{kernel} in {label!r}: {seen['launches']:.1f} launches, "
+                       f"{seen['device_ms']:.4f} ms")
+    log("profile, per iteration: " + "; ".join(in_rows))
+    labels = production.labels(cfg)
+    stages = sum(prod[label.strip()]["wall_ms"] for label in labels[4:9])
+    whole = prod[labels[1]]["wall_ms"]
+    if not stages <= whole * STAGES_OVER_WHOLE:
+        raise AssertionError(f"phase 12: the extractor's stages take {stages:.3f} ms, "
+                             f"batch_extract {whole:.3f} ms")
+    split = {r["label"]: r["wall_ms"] for r in out["scan_split"]["rows"]}
+    parts = split["matcher"] + split["PnP-RANSAC"]
+    track = split[scan_split.LABELS[1]]
+    if not parts <= track * STAGES_OVER_WHOLE:
+        raise AssertionError(f"phase 12: matcher + PnP take {parts:.3f} ms, track_step {track:.3f}")
+    if not all(r["bit_equal_no_mesh"] and r["backend"] == "nccl" for r in win["scaling"]["nccl"]):
+        raise AssertionError("phase 12: the one-rank NCCL schedule is not bit-equal to no mesh")
+    for name in ("profile_production", "profile_scan_split"):
+        check_launches(launches[name], name)
+    log(f"profilers: stages {stages:.3f} ms against batch_extract {whole:.3f} ms; matcher + PnP "
+        f"{parts:.3f} ms against track_step {track:.3f} ms; every row's device time within "
+        f"its wall")
+    summary = {name: [{k: r[k] for k in ("label", "wall_ms", "device_ms", "launches", "syncs")}
+                      for r in res.get("rows", [])] for name, res in out.items()}
+    summary["window"] = {k: [{f: r[f] for f in ("label", "wall_ms", "device_ms", "launches")}
+                             for r in v] for k, v in
+                         (("growth", win["growth"]), ("shard_local", win["shard_local"]),
+                          ("nccl", win["scaling"]["nccl"]))}
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1044,6 +1114,8 @@ def main() -> int:
         entry_launches, entry_points = phase("10 entry points", run_entry_points, cfg)
         launches.update(entry_launches)
         launches["soak"], soaked = phase("11 soak", run_short_soak, cfg, renderer)
+    profile_launches, profiled = phase("12 profilers", run_profilers, cfg, frames, dev)
+    launches.update(profile_launches)
     walls["total"] = time.perf_counter() - t_start
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
 
@@ -1065,7 +1137,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "host_driver": host_rates,
                       "mesh": {"nccl_1_rank": mesh_one, f"gloo_{MESH_RANKS}_ranks": mesh_two},
                       "dataset": dataset, **benched, "entry_points": entry_points,
-                      "soak": soaked, "phase_walls_s": walls,
+                      "soak": soaked, "profilers": profiled, "phase_walls_s": walls,
                       "brief_bit_flips": [g["brief_bit_flips"], g["brief_bits"]],
                       "steered_bit_flips": [g["steered_bit_flips"], g["brief_bits"]]}))
     print(card)

@@ -79,18 +79,26 @@ def _level_geometry(config: Config):
     return out
 
 
-def _depth_fields(config: Config, left, right, yx_int, yx_f, valid) -> dict:
-    """The five FrameFeatures depth fields of keypoints yx_int (N, 2) on the
-    (H, W) pair; yx_f (N, 2) are their float coords for back-projection."""
+def stereo_match(config: Config, left, right, yx_int, valid) -> stereo_ops.StereoResult:
+    """The ZNCC disparity search (through the K3 wrapper when
+    `frontend.pallas_stereo`) of keypoints yx_int (N, 2) on the (H, W) pair,
+    with the config's gates."""
     fe = config.frontend
     cam = config.camera
-    st = stereo_ops.match_disparity(
+    return stereo_ops.match_disparity(
         left, right, yx_int, valid,
         fx=cam.fx, baseline=cam.baseline, max_disparity=fe.max_disparity,
         patch=fe.stereo_patch, min_zncc=fe.min_zncc,
         min_depth=fe.min_depth, max_depth=fe.max_depth,
         reliable_depth=fe.reliable_depth, use_kernel=fe.pallas_stereo,
     )
+
+
+def _depth_fields(config: Config, left, right, yx_int, yx_f, valid) -> dict:
+    """The five FrameFeatures depth fields of keypoints yx_int (N, 2) on the
+    (H, W) pair; yx_f (N, 2) are their float coords for back-projection."""
+    cam = config.camera
+    st = stereo_match(config, left, right, yx_int, valid)
     pts_cam = stereo_ops.backproject(
         yx_f, st.depth, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy
     )
@@ -100,90 +108,120 @@ def _depth_fields(config: Config, left, right, yx_int, yx_f, valid) -> dict:
     )
 
 
-def make_batch_extractor(config: Config, device, with_depth: bool = True):
-    """Build batch_extract(images (B, 2, H, W) uint8 or f32 on `device`) ->
-    FrameFeatures with a leading B axis. `with_depth=False` zeroes the
-    depth fields (the lazy-depth chunk path)."""
-    fe = config.frontend
-    vh, vw = config.image_hw
-    levels = _level_geometry(config)
-    border = fe.border_margin
-    device = torch.device(device)
-    steer = fe.steer_descriptor
-    M = torch.from_numpy(
-        orb_ops.brief_matrix_bf16(fe.descriptor_bits, fe.patch_size, steer)
-    ).to(device)
-    # resize weights per level, built once host-side (ops/image.resize_weights)
-    resize = [
-        None if i == 0 else im_ops.resize_matrices((vh, vw), hw, device)
-        for i, (_, hw, _, _) in enumerate(levels)
-    ]
-    # border masks per level (static)
-    in_border = []
-    for _, (h_i, w_i), (H_i, W_i), _ in levels:
-        yy = torch.arange(H_i, device=device)[:, None]
-        xx = torch.arange(W_i, device=device)[None, :]
-        in_border.append(
-            (yy >= border) & (yy < h_i - border) & (xx >= border) & (xx < w_i - border)
+class ExtractStages:
+    """The batched extractor's stages, each the very call `batch_extract`
+    makes, over its per-level geometry, resize weights, border masks and
+    BRIEF matrix (built once on `device`). The profilers time them one
+    stage at a time (profiling/production.py).
+
+    Per level i: `level_image` (the pyramid), `detect` (FAST+NMS, border,
+    pooled top-k), `blur`, `describe` (patch gather + BRIEF); then `merge`
+    concatenates the levels and runs `anms` and, eagerly, the depth."""
+
+    def __init__(self, config: Config, device):
+        fe = config.frontend
+        vh, vw = config.image_hw
+        self.config = config
+        self.device = device = torch.device(device)
+        self.levels = _level_geometry(config)
+        self.M = torch.from_numpy(
+            orb_ops.brief_matrix_bf16(fe.descriptor_bits, fe.patch_size, fe.steer_descriptor)
+        ).to(device)
+        # resize weights per level, built once host-side (ops/image.resize_weights)
+        self.resize = [
+            None if i == 0 else im_ops.resize_matrices((vh, vw), hw, device)
+            for i, (_, hw, _, _) in enumerate(self.levels)
+        ]
+        # border masks per level (static)
+        border = fe.border_margin
+        self.in_border = []
+        for _, (h_i, w_i), (H_i, W_i), _ in self.levels:
+            yy = torch.arange(H_i, device=device)[:, None]
+            xx = torch.arange(W_i, device=device)[None, :]
+            self.in_border.append(
+                (yy >= border) & (yy < h_i - border) & (xx >= border) & (xx < w_i - border)
+            )
+
+    def level_image(self, left: torch.Tensor, i: int) -> torch.Tensor:
+        """Level i of the pyramid of left (B, H, W) f32: left itself at
+        level 0, else its valid region resized and zero-padded to
+        (B, H_i, W_i)."""
+        if i == 0:
+            return left
+        vh, vw = self.config.image_hw
+        return im_ops.pad_to(
+            im_ops.resize_linear(left[:, :vh, :vw], self.resize[i]), self.levels[i][2]
         )
 
-    def score_map(stacked):
+    def detect(self, i: int, imgs: torch.Tensor):
+        """FAST+NMS on level i's images (B, H_i, W_i) stacked to
+        (B*H_i, W_i), the border mask and the pooled top-k. Returns
+        (stacked, scores (B, n_i), yx (B, n_i, 2) int32)."""
+        fe = self.config.frontend
+        B = imgs.shape[0]
+        H_i, W_i = self.levels[i][2]
+        stacked = imgs.reshape(B * H_i, W_i).contiguous()
         if fe.pallas_fast:
-            return fast_kernel.fast_nms_score_map(stacked, fe.fast_threshold)
-        return fast_kernel.fast_nms_plain(stacked, fe.fast_threshold)
+            score = fast_kernel.fast_nms_score_map(stacked, fe.fast_threshold)
+        else:
+            score = fast_kernel.fast_nms_plain(stacked, fe.fast_threshold)
+        score = torch.where(self.in_border[i], score.reshape(B, H_i, W_i), 0.0)
+        top_scores, yx = fast_ops.nms_topk(score, self.levels[i][3])
+        return stacked, top_scores, yx
 
-    def gather(blurred, yx, frame_h):
+    def blur(self, stacked: torch.Tensor) -> torch.Tensor:
+        return im_ops.box_blur(stacked, self.config.frontend.blur_box)
+
+    def describe(self, i: int, blurred: torch.Tensor, yx: torch.Tensor):
+        """The patch gather on level i's blurred stack at keypoints yx
+        (B, n, 2), clamped per frame, then BRIEF. Returns (packed (B, n,
+        words), signs (B, n, bits))."""
+        fe = self.config.frontend
+        B, n = yx.shape[:2]
+        H_i = self.levels[i][2][0]
+        row_off = (torch.arange(B, device=self.device, dtype=torch.int32) * H_i)[:, None]
+        yx_st = torch.stack([yx[..., 0] + row_off, yx[..., 1]], dim=-1)
+        yx_st = yx_st.reshape(B * n, 2).contiguous()
         if fe.pallas_patches:
-            return patch_kernel.gather_patches(blurred, yx, fe.patch_size, frame_h)
-        return patch_kernel.gather_patches_plain(blurred, yx, fe.patch_size, frame_h)
+            patches = patch_kernel.gather_patches(blurred, yx_st, fe.patch_size, H_i)
+        else:
+            patches = patch_kernel.gather_patches_plain(blurred, yx_st, fe.patch_size, H_i)
+        packed, signs = orb_ops.describe_patches(patches, self.M, fe.steer_descriptor)
+        return packed.reshape(B, n, -1), signs.reshape(B, n, -1)
 
-    def batch_extract(images: torch.Tensor) -> FrameFeatures:
-        B = images.shape[0]
-        left = images[:, 0].float()                       # (B, H, W)
-        yx_parts, yxf_parts, score_parts, scale_parts = [], [], [], []
-        packed_parts, signs_parts = [], []
-        for i, (s, (h_i, w_i), (H_i, W_i), budget) in enumerate(levels):
-            if i == 0:
-                imgs = left
-            else:
-                imgs = im_ops.pad_to(
-                    im_ops.resize_linear(left[:, :vh, :vw], resize[i]), (H_i, W_i)
-                )
-            stacked = imgs.reshape(B * H_i, W_i).contiguous()
-            score = score_map(stacked).reshape(B, H_i, W_i)
-            score = torch.where(in_border[i], score, 0.0)
-            top_scores, yx_i = fast_ops.nms_topk(score, budget)   # (B, n, 2)
-
-            blurred = im_ops.box_blur(stacked, fe.blur_box)
-            row_off = (torch.arange(B, device=device, dtype=torch.int32) * H_i)[:, None]
-            yx_st = torch.stack([yx_i[..., 0] + row_off, yx_i[..., 1]], dim=-1)
-            patches = gather(blurred, yx_st.reshape(B * budget, 2).contiguous(), H_i)
-            packed_i, signs_i = orb_ops.describe_patches(patches, M, steer)
-
-            yx_full = yx_i.float() * s
-            yx_parts.append(torch.round(yx_full).to(torch.int32))
-            yxf_parts.append(yx_full)
-            score_parts.append(top_scores)
-            scale_parts.append(torch.full((B, budget), s, dtype=torch.float32, device=device))
-            packed_parts.append(packed_i.reshape(B, budget, -1))
-            signs_parts.append(signs_i.reshape(B, budget, -1))
-
-        yx_int = torch.cat(yx_parts, dim=1)
-        yx_f = torch.cat(yxf_parts, dim=1)
-        score = torch.cat(score_parts, dim=1)
-        valid = (score > 0.0) & (yx_int[..., 0] < vh) & (yx_int[..., 1] < vw)
-        spawn_mask = anms_ops.anms_mask(
+    def anms(self, yx_int: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+        fe = self.config.frontend
+        return anms_ops.anms_mask(
             yx_int, score, num=fe.n_features, robust_coeff=fe.anms_robust_coeff
         )
+
+    def stereo(self, left, right, yx_int, valid) -> stereo_ops.StereoResult:
+        return stereo_match(self.config, left, right, yx_int, valid)
+
+    def merge(self, images: torch.Tensor, per_level, with_depth: bool) -> FrameFeatures:
+        """FrameFeatures (leading B axis) of the levels' (scores, yx,
+        packed, signs), in level order; `with_depth=False` zeroes the
+        depth fields."""
+        vh, vw = self.config.image_hw
+        device = self.device
+        B = images.shape[0]
+        yx_f = torch.cat([yx.float() * s for (s, _, _, _), (_, yx, _, _)
+                          in zip(self.levels, per_level)], dim=1)
+        yx_int = torch.round(yx_f).to(torch.int32)
+        score = torch.cat([p[0] for p in per_level], dim=1)
+        scale = torch.cat([torch.full((B, p[1].shape[1]), s, dtype=torch.float32, device=device)
+                           for (s, _, _, _), p in zip(self.levels, per_level)], dim=1)
+        valid = (score > 0.0) & (yx_int[..., 0] < vh) & (yx_int[..., 1] < vw)
+        spawn_mask = self.anms(yx_int, score)
         N = yx_int.shape[1]
         if with_depth:
             # one sweep over all frames' keypoints on the stacked full-res
             # pair; frame b's rows are offset by b * H0
-            H0, W0 = left.shape[1:]
+            H0, W0 = images.shape[2:]
             row_off = (torch.arange(B, device=device, dtype=torch.int32) * H0)[:, None]
             yx_st = torch.stack([yx_int[..., 0] + row_off, yx_int[..., 1]], dim=-1)
             depth = _depth_fields(
-                config, left.reshape(B * H0, W0),
+                self.config, images[:, 0].float().reshape(B * H0, W0),
                 images[:, 1].float().reshape(B * H0, W0),
                 yx_st.reshape(B * N, 2).contiguous(), yx_f.reshape(B * N, 2),
                 valid.reshape(B * N),
@@ -197,12 +235,28 @@ def make_batch_extractor(config: Config, device, with_depth: bool = True):
                 pts_cam=torch.zeros((B, N, 3), dtype=torch.float32, device=device),
             )
         return FrameFeatures(
-            yx=yx_f, score=score, scale=torch.cat(scale_parts, dim=1),
-            valid=valid, spawn_mask=spawn_mask,
-            signs=torch.cat(signs_parts, dim=1),
-            packed=torch.cat(packed_parts, dim=1), **depth,
+            yx=yx_f, score=score, scale=scale, valid=valid, spawn_mask=spawn_mask,
+            signs=torch.cat([p[3] for p in per_level], dim=1),
+            packed=torch.cat([p[2] for p in per_level], dim=1), **depth,
         )
 
+
+def make_batch_extractor(config: Config, device, with_depth: bool = True):
+    """Build batch_extract(images (B, 2, H, W) uint8 or f32 on `device`) ->
+    FrameFeatures with a leading B axis. `with_depth=False` zeroes the
+    depth fields (the lazy-depth chunk path)."""
+    st = ExtractStages(config, device)
+
+    def batch_extract(images: torch.Tensor) -> FrameFeatures:
+        left = images[:, 0].float()                       # (B, H, W)
+        per_level = []
+        for i in range(len(st.levels)):
+            stacked, top_scores, yx_i = st.detect(i, st.level_image(left, i))
+            packed_i, signs_i = st.describe(i, st.blur(stacked), yx_i)
+            per_level.append((top_scores, yx_i, packed_i, signs_i))
+        return st.merge(images, per_level, with_depth)
+
+    batch_extract.stages = st   # the profilers time these very calls
     return batch_extract
 
 
