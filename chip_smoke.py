@@ -35,18 +35,26 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
          on both ranks: phase 4's gates, BA on the mesh, every frame within
          5e-2 m of phase 4's, both ranks' carries bit-equal;
      with the ms per BA run sharded and unsharded and each run's wall;
-  8. the KITTI entry point: phase 4's frames written as 8-bit PNGs in the
-     KITTI layout (the writer below, standard library only, cycles each
-     image's rows through the five PNG filters), then read through the
-     port's native runtime (utils/native.py, built from the checkout):
+  8. the KITTI entry point: phase 4's frames written as 8-bit gray PNGs in
+     the KITTI layout (the writer below, standard library and numpy only,
+     cycles each image's rows through the five PNG filters), and again in a
+     second tree in six kinds that carry 8-bit gray losslessly (RGB, RGBA,
+     a gray palette, Adam7, gray+alpha, 16-bit; left and right of a frame
+     in different kinds), then read through the port's native runtime
+     (utils/native.py, built from the checkout):
      (a) 64 frames in order, byte-equal to the rendered ones, and
          config_for giving Config();
+     (a2) the same from the mixed tree;
      (b) frames/s of the prefetcher at 1 and 4 workers, of
-         read_image_gray frame by frame and of PIL (median of 3);
+         read_image_gray frame by frame and of PIL (median of 3), and of
+         the prefetcher on the mixed tree;
      (c) ChunkedSlam.run_rolling (window 4) fed by seq.frames(): records,
          poses and the whole carry bit-equal to phase 4's run;
+     (c2) the same from the mixed tree;
      (d) run_vslam --dataset ... --device cuda --rolling 4: exit 0, a pose
          file byte-equal to (c)'s, the ATE and KITTI line printed;
+     (e) 8- and 16-bit RGB with unequal channels decoded byte-equal to
+         gray_of_rgb, the numpy model of the conversion;
   9. the port's bench (bench.run_bench) at a reduced length: 3 warm-up and
      3 timed chunks, one staged run, the streaming and rolling passes, the
      hard (45 frames) and highway (96 frames) profiles: the JSON line's four
@@ -639,17 +647,34 @@ def run_mesh_two_ranks(frames, world, cfg, ref, dev):
     return results
 
 
-def png_bytes(img: np.ndarray, level: int = 6, first: int = 0) -> bytes:
-    """A grayscale PNG of `img` (8-bit for uint8, 16-bit for uint16) built on
-    the standard library alone (the card's machine need not have Pillow).
-    Row r takes filter type (first + r) % 5: None, Sub, Up, Average, Paeth
-    in turn, so that a decoder's unfiltering is exercised. The predictors
-    read the original samples, so numpy filters every row at once."""
-    h, w = img.shape
-    depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}[img.dtype]
-    bpp = depth // 8
-    x = np.ascontiguousarray(img, dtype=">u2" if depth == 16 else np.uint8)
-    x = x.view(np.uint8).reshape(h, w * bpp).astype(np.int16)
+# Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # by colour type
+
+
+def png_chunk(tag: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+
+def png_scanlines(img: np.ndarray, depth: int, first: int) -> bytes:
+    """`img`'s rows (h, w, channels) of samples as PNG scanlines: packed
+    (1/2/4 bits MSB first, 16 bits big-endian), each behind its filter type
+    (first + r) % 5 for row r: None, Sub, Up, Average, Paeth in turn. The
+    predictors read the original samples, so numpy filters every row at
+    once."""
+    h, w, ch = img.shape
+    if depth < 8:
+        per = 8 // depth
+        x = np.zeros((h, -(-w // per) * per), np.uint8)
+        x[:, :w] = img[:, :, 0]
+        x = x.reshape(h, -1, per) << (8 - depth * (1 + np.arange(per, dtype=np.uint8)))
+        x = np.bitwise_or.reduce(x, axis=2)
+    else:
+        x = np.ascontiguousarray(img, dtype=">u2" if depth == 16 else np.uint8)
+        x = x.view(np.uint8).reshape(h, -1)
+    x = x.astype(np.int16)
+    bpp = max(1, ch * depth // 8)
     a = np.zeros_like(x)   # left: the same row, one pixel back
     a[:, bpp:] = x[:, :-bpp]
     b = np.zeros_like(x)   # up
@@ -662,29 +687,97 @@ def png_bytes(img: np.ndarray, level: int = 6, first: int = 0) -> bytes:
     predictors = np.stack([np.zeros_like(x), a, b, (a + b) // 2, paeth])
     kind = (first + np.arange(h)) % 5
     rows = ((x - predictors[kind, np.arange(h)]) & 0xFF).astype(np.uint8)
-    raw = np.concatenate([kind[:, None].astype(np.uint8), rows], axis=1).tobytes()
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data)))
-
-    header = struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0)   # gray, no interlace
-    return (PNG_SIGNATURE + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b""))
+    return np.concatenate([kind[:, None].astype(np.uint8), rows], axis=1).tobytes()
 
 
-def write_kitti(root, frames, world, cam):
+def png_bytes(img: np.ndarray, level: int = 6, first: int = 0, *, color: int = 0,
+              depth: int | None = None, interlace: int = 0, palette=None, trns=None,
+              gamma: int | None = None, srgb: int | None = None, chrm=None) -> bytes:
+    """A PNG of `img` built on the standard library and numpy alone (the
+    card's machine need not have Pillow). `img` holds the samples: (h, w)
+    for gray and palette indices, (h, w, channels) for the other colour
+    types; `depth` is 8 for uint8 and 16 for uint16 unless given (1, 2 and 4
+    for gray and palette). `interlace=1` writes Adam7. Optional chunks:
+    `palette` (n, 3) -> PLTE, `trns` -> tRNS (the gray sample, the RGB
+    triple or the palette's alphas), `gamma` -> gAMA (x 100000), `srgb` ->
+    sRGB (its rendering intent), `chrm` -> cHRM (8 values x 100000). Rows
+    cycle through the five filter types from `first` (across the passes at
+    Adam7)."""
+    img = np.asarray(img)
+    if depth is None:
+        depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}[img.dtype]
+    samples = img.reshape(img.shape[0], img.shape[1], PNG_CHANNELS[color])
+    h, w = samples.shape[:2]
+    if interlace:
+        raw, row = [], first
+        for x0, y0, dx, dy in ADAM7:
+            sub = samples[y0::dy, x0::dx]
+            if sub.size:
+                raw.append(png_scanlines(sub, depth, row))
+                row += sub.shape[0]
+        raw = b"".join(raw)
+    else:
+        raw = png_scanlines(samples, depth, first)
+    chunks = [png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))]
+    if gamma is not None:
+        chunks.append(png_chunk(b"gAMA", struct.pack(">I", gamma)))
+    if chrm is not None:
+        chunks.append(png_chunk(b"cHRM", struct.pack(">8I", *chrm)))
+    if srgb is not None:
+        chunks.append(png_chunk(b"sRGB", bytes([srgb])))
+    if palette is not None:
+        chunks.append(png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    if trns is not None:
+        fmt = "B" if color == 3 else "H"
+        chunks.append(png_chunk(b"tRNS", struct.pack(f">{len(trns)}{fmt}", *trns)))
+    chunks += [png_chunk(b"IDAT", zlib.compress(raw, level)), png_chunk(b"IEND", b"")]
+    return PNG_SIGNATURE + b"".join(chunks)
+
+
+# phase 8(a2)'s PNG kinds, each carrying an 8-bit gray image losslessly
+MIXED_KINDS = ("rgb", "rgba", "palette", "adam7", "gray_alpha", "gray16")
+
+
+def lossless_png(img: np.ndarray, kind: str, first: int = 0) -> bytes:
+    """An 8-bit gray image as a PNG of `kind` that decodes back to it: RGB
+    with three equal channels, RGBA with equal channels and varying alpha,
+    a 256-entry gray palette, Adam7 gray, gray+alpha, or 16-bit gray whose
+    high byte is the pixel. No kind takes a gamma chunk."""
+    h, w = img.shape
+    vary = (np.add.outer(np.arange(h), 3 * np.arange(w)) % 256).astype(np.uint8)
+    if kind == "rgb":
+        return png_bytes(np.repeat(img[..., None], 3, axis=2), first=first, color=2)
+    if kind == "rgba":
+        return png_bytes(np.dstack([img, img, img, vary]), first=first, color=6)
+    if kind == "palette":
+        ramp = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+        return png_bytes(img, first=first, color=3, palette=ramp)
+    if kind == "adam7":
+        return png_bytes(img, first=first, interlace=1)
+    if kind == "gray_alpha":
+        return png_bytes(np.dstack([img, vary]), first=first, color=4)
+    if kind == "gray16":
+        return png_bytes((img.astype(np.uint16) << 8) | vary, first=first)
+    raise ValueError(f"unknown PNG kind {kind!r}")
+
+
+def write_kitti(root, frames, world, cam, kinds=None):
     """The frames as sequence 00 of a KITTI odometry tree under `root`:
-    8-bit PNGs of what the slice reads (the pixels cast to uint8, as
-    ChunkedSlam's upload does), calib.txt and the ground-truth poses, each
-    number written with repr so that it parses back exactly."""
+    8-bit gray PNGs of what the slice reads (the pixels cast to uint8, as
+    ChunkedSlam's upload does) or, with `kinds`, frame f's left image as
+    kind f and its right image as kind f + 3 of them in turn
+    (lossless_png); calib.txt and the ground-truth poses, each number
+    written with repr so that it parses back exactly."""
     seq = os.path.join(root, "sequences", "00")
     for side in ("image_0", "image_1"):
         os.makedirs(os.path.join(seq, side))
     for f, left, right in frames:
-        for side, img in (("image_0", left), ("image_1", right)):
+        for side, img, shift in (("image_0", left, 0), ("image_1", right, 3)):
+            img = img.astype(np.uint8)
+            data = (png_bytes(img, first=f) if kinds is None
+                    else lossless_png(img, kinds[(f + shift) % len(kinds)], first=f))
             with open(os.path.join(seq, side, f"{f:06d}.png"), "wb") as fh:
-                fh.write(png_bytes(img.astype(np.uint8), first=f))
+                fh.write(data)
     fx, fy, cx, cy = (float(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy))
     tx = -fx * float(cam.baseline)
     with open(os.path.join(seq, "calib.txt"), "w") as fh:
@@ -696,9 +789,47 @@ def write_kitti(root, frames, world, cam):
             fh.write(" ".join(repr(float(v)) for v in np.linalg.inv(T)[:3, :4].reshape(-1)) + "\n")
 
 
-def decode_rates(seq):
+def check_decoded(seq, frames, label):
+    """Every frame of `seq`, in order, byte-equal to the rendered ones."""
+    with contextlib.closing(seq.frames()) as decoded:
+        for (i, left, right), (f, l0, r0) in zip(decoded, frames, strict=True):
+            if i != f or not (np.array_equal(left, l0.astype(np.uint8))
+                              and np.array_equal(right, r0.astype(np.uint8))):
+                raise AssertionError(f"{label}: frame {i} (expected {f}) differs")
+
+
+def gray_of_rgb(rgb: np.ndarray) -> np.ndarray:
+    """8-bit gray of RGB samples (h, w, 3), uint8 or uint16, with no gamma
+    or colour chunk, as libpng's rgb_to_gray and strip_16 give it: weights
+    6968 / 23434 / 2366 of 32768; at 8 bits truncated, and R itself where
+    the three are equal; at 16 bits rounded, then the high byte."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    dot = 6968 * r + 23434 * g + 2366 * b
+    if rgb.dtype == np.uint8:
+        return np.where((r == g) & (r == b), r, dot >> 15).astype(np.uint8)
+    return (((dot + 16384) >> 15) >> 8).astype(np.uint8)
+
+
+def check_rgb_model(root):
+    """Phase 8(e): small 8- and 16-bit RGB images with unequal channels
+    decode to gray_of_rgb's bytes."""
+    from stereo_visual_slam_tpu_torch.utils import native
+
+    rng = np.random.default_rng(8)
+    for dtype in (np.uint8, np.uint16):
+        rgb = rng.integers(0, np.iinfo(dtype).max + 1, size=(37, 53, 3)).astype(dtype)
+        path = os.path.join(root, f"rgb{rgb.itemsize * 8}.png")
+        with open(path, "wb") as fh:
+            fh.write(png_bytes(rgb, color=2))
+        if not np.array_equal(native.read_image_gray(path), gray_of_rgb(rgb)):
+            raise AssertionError(f"phase 8(e): {rgb.itemsize * 8}-bit RGB differs from the model")
+    return "8- and 16-bit RGB, 37x53, byte-equal to gray_of_rgb"
+
+
+def decode_rates(seq, every_way=True):
     """Phase 8(b): frames/s of four ways of reading the sequence (each
-    stereo pair decoded once), median of DECODE_REPS runs taken in turns."""
+    stereo pair decoded once), or of the prefetcher's two alone, median of
+    DECODE_REPS runs taken in turns."""
     from stereo_visual_slam_tpu_torch.utils import native
 
     dirs = [os.path.join(seq.seq_dir, side) for side in ("image_0", "image_1")]
@@ -717,13 +848,14 @@ def decode_rates(seq):
         for p in paths:
             native.read_image_gray(p)
 
-    ways = {"prefetch_workers1": prefetch(1), "prefetch_workers4": prefetch(4),
-            "read_image_gray": by_frame}
+    ways = {"prefetch_workers1": prefetch(1), "prefetch_workers4": prefetch(4)}
+    if every_way:
+        ways["read_image_gray"] = by_frame
     try:
         from PIL import Image
     except ImportError:
         Image = None
-    if Image is not None:
+    if every_way and Image is not None:
         def pil():
             for p in paths:
                 with Image.open(p) as im:
@@ -737,8 +869,26 @@ def decode_rates(seq):
             ways[k]()
             times[k].append(time.perf_counter() - t0)
     rates = {k: seq.n_frames / float(np.median(v)) for k, v in times.items()}
-    rates.setdefault("pil", "absent")
+    if every_way:
+        rates.setdefault("pil", "absent")
     return rates
+
+
+def rolling_from(seq, cfg, pose_path):
+    """ChunkedSlam.run_rolling (window DATASET_WINDOW) fed by seq.frames();
+    the ChunkedSlam, its wall and the kernels' launches in the run."""
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
+
+    slam = ChunkedSlam(cfg, chunk=CHUNK, device="cuda", pose_path=pose_path)
+    kernels.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.closing(seq.frames()) as source:
+        slam.run_rolling(source, window_chunks=DATASET_WINDOW)
+    slam.finish()
+    sync()
+    return slam, time.perf_counter() - t0, kernels.launch_counts()
 
 
 def run_dataset(frames, world, cfg, ref, ref_wall):
@@ -747,7 +897,6 @@ def run_dataset(frames, world, cfg, ref, ref_wall):
     from stereo_visual_slam_tpu_torch import run_vslam
     from stereo_visual_slam_tpu_torch.data import kitti
     from stereo_visual_slam_tpu_torch.ops import kernels
-    from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
     from stereo_visual_slam_tpu_torch.utils import native
 
     t0 = time.perf_counter()
@@ -755,11 +904,16 @@ def run_dataset(frames, world, cfg, ref, ref_wall):
         raise AssertionError(f"phase 8: the native runtime is not available:\n{native.load_error()}")
     build_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as root:
+        mixed_root = os.path.join(root, "mixed")
         t0 = time.perf_counter()
         write_kitti(root, frames, world, cfg.camera)
         write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_kitti(mixed_root, frames, world, cfg.camera, kinds=MIXED_KINDS)
+        write_mixed_s = time.perf_counter() - t0
         log(f"dataset: native runtime {native.library_path()} ({build_s:.1f} s); "
-            f"{len(frames)} stereo PNG pairs written in {write_s:.1f} s")
+            f"{len(frames)} stereo PNG pairs written in {write_s:.1f} s, in the kinds "
+            f"{MIXED_KINDS} in {write_mixed_s:.1f} s")
 
         # (a) decode: every frame in order, byte-equal; the config back
         seq = kitti.open_sequence(root, "00")
@@ -768,41 +922,43 @@ def run_dataset(frames, world, cfg, ref, ref_wall):
         cfg_seq = kitti.config_for(seq, cfg)
         if dataclasses.asdict(cfg_seq) != dataclasses.asdict(cfg):
             raise AssertionError("phase 8(a): config_for(seq, Config()) differs from Config()")
-        with contextlib.closing(seq.frames()) as decoded:
-            for (i, left, right), (f, l0, r0) in zip(decoded, frames, strict=True):
-                if i != f or not (np.array_equal(left, l0.astype(np.uint8))
-                                  and np.array_equal(right, r0.astype(np.uint8))):
-                    raise AssertionError(f"phase 8(a): frame {i} (expected {f}) differs")
+        check_decoded(seq, frames, "phase 8(a)")
         log(f"dataset (a): {FRAMES} frames decoded in order, byte-equal; config_for == Config()")
+
+        # (a2) the same frames from the tree of mixed PNG kinds
+        mixed = kitti.open_sequence(mixed_root, "00")
+        if mixed.n_frames != FRAMES:
+            raise AssertionError(f"phase 8(a2): found {mixed.n_frames} frames, wrote {FRAMES}")
+        check_decoded(mixed, frames, "phase 8(a2)")
+        log(f"dataset (a2): {FRAMES} frames of the kinds {MIXED_KINDS} decoded in order, "
+            "byte-equal")
 
         # (b) decode rates on the card's host
         rates = decode_rates(seq)
-        log("dataset (b): frames/s, median of %d: %s; os.cpu_count() %d" % (
-            DECODE_REPS, ", ".join(f"{k} {v if isinstance(v, str) else f'{v:.1f}'}"
-                                   for k, v in rates.items()), os.cpu_count()))
+        rates_mixed = decode_rates(mixed, every_way=False)
+        for label, r in (("gray", rates), ("mixed", rates_mixed)):
+            log("dataset (b): %s tree, frames/s, median of %d: %s; os.cpu_count() %d" % (
+                label, DECODE_REPS, ", ".join(f"{k} {v if isinstance(v, str) else f'{v:.1f}'}"
+                                              for k, v in r.items()), os.cpu_count()))
 
-        # (c) the slice fed from the files
-        pose_c = os.path.join(root, "rolling.txt")
-        slam = ChunkedSlam(cfg_seq, chunk=CHUNK, device="cuda", pose_path=pose_c)
-        kernels.reset_launch_counts()
-        sync()
-        t0 = time.perf_counter()
-        with contextlib.closing(seq.frames()) as source:
-            slam.run_rolling(source, window_chunks=DATASET_WINDOW)
-        slam.finish()
-        sync()
-        wall_c = time.perf_counter() - t0
-        launches = kernels.launch_counts()
-        diff = same_run(slam, ref)
-        log(f"dataset (c): {len(slam.stats)} frames from files, run_rolling window "
-            f"{DATASET_WINDOW}, in {wall_c:.3f} s (phase 4 streamed from memory: {ref_wall:.3f} s); "
-            f"syncs/frame {slam.syncs / len(slam.stats):.3f}; differs from phase 4 in: "
-            f"{diff or 'nothing'}; launches {launches}")
-        if diff:
-            raise AssertionError(f"phase 8(c): the file-fed run differs from phase 4 in {diff}")
-        check_launches(launches, "dataset (c)")
+        # (c) the slice fed from the files, (c2) from the mixed kinds
+        runs = {}
+        for label, tree in (("c", seq), ("c2", mixed)):
+            pose = os.path.join(root, f"rolling_{label}.txt")
+            slam, wall, launches = rolling_from(tree, cfg_seq, pose)
+            diff = same_run(slam, ref)
+            log(f"dataset ({label}): {len(slam.stats)} frames from files, run_rolling window "
+                f"{DATASET_WINDOW}, in {wall:.3f} s (phase 4 streamed from memory: "
+                f"{ref_wall:.3f} s); syncs/frame {slam.syncs / len(slam.stats):.3f}; differs "
+                f"from phase 4 in: {diff or 'nothing'}; launches {launches}")
+            if diff:
+                raise AssertionError(f"phase 8({label}): the file-fed run differs from phase 4 "
+                                     f"in {diff}")
+            check_launches(launches, f"dataset ({label})")
+            runs[label] = dict(pose=pose, wall=wall, launches=launches)
+        pose_c = runs["c"]["pose"]
 
-        # (d) the CLI on the same tree
+        # (d) the CLI on the gray tree
         pose_d = os.path.join(root, "cli.txt")
         out = io.StringIO()
         kernels.reset_launch_counts()
@@ -826,9 +982,16 @@ def run_dataset(frames, world, cfg, ref, ref_wall):
         if "ATE RMSE" not in printed or "KITTI trans" not in printed:
             raise AssertionError("phase 8(d): the CLI printed no ATE and KITTI line")
         check_launches(cli_launches, "dataset (d)")
-    return dict(decode_frames_per_s=rates, cpu_count=os.cpu_count(), write_s=write_s,
-                rolling_wall_s=wall_c, cli_wall_s=wall_d, phase4_wall_s=ref_wall,
-                launches=launches, cli_launches=cli_launches)
+
+        # (e) unequal channels against the numpy model of the conversion
+        rgb_model = check_rgb_model(root)
+        log(f"dataset (e): {rgb_model}")
+    return dict(decode_frames_per_s=rates, mixed_decode_frames_per_s=rates_mixed,
+                cpu_count=os.cpu_count(), write_s=write_s, write_mixed_s=write_mixed_s,
+                rolling_wall_s=runs["c"]["wall"], mixed_rolling_wall_s=runs["c2"]["wall"],
+                cli_wall_s=wall_d, phase4_wall_s=ref_wall, rgb_model=rgb_model,
+                launches=runs["c"]["launches"], mixed_launches=runs["c2"]["launches"],
+                cli_launches=cli_launches)
 
 
 def check_per_frame(launches, frames, keyframes, label):
@@ -1103,9 +1266,11 @@ def main() -> int:
     log(f"mesh BA per BA run and slice walls, on {card}: {timing}")
     dataset = phase("8 dataset", run_dataset, frames, world, cfg, slice_run, slice_wall)
     launches["dataset"], launches["dataset_cli"] = dataset["launches"], dataset["cli_launches"]
-    rates = dataset["decode_frames_per_s"]
-    log(f"dataset on {card}: decode frames/s {rates} on {dataset['cpu_count']} CPUs; walls: "
-        f"rolling from files {dataset['rolling_wall_s']:.3f} s, CLI {dataset['cli_wall_s']:.3f} s, "
+    launches["dataset_mixed"] = dataset["mixed_launches"]
+    log(f"dataset on {card}: decode frames/s {dataset['decode_frames_per_s']}, mixed kinds "
+        f"{dataset['mixed_decode_frames_per_s']}, on {dataset['cpu_count']} CPUs; walls: "
+        f"rolling from files {dataset['rolling_wall_s']:.3f} s, from mixed kinds "
+        f"{dataset['mixed_rolling_wall_s']:.3f} s, CLI {dataset['cli_wall_s']:.3f} s, "
         f"phase 4 {slice_wall:.3f} s")
     # phases 9 and 11 render on one pool of processes, started once
     with render_pool.Renderer() as renderer:

@@ -1,16 +1,18 @@
 """ctypes bindings for the port's native host runtime (port of
 stereo_visual_slam_tpu/utils/native.py, with the same public names).
 
-`libslamio` provides grayscale PNG/PGM decode, a multithreaded prefetching
-stereo-frame loader (bounded ring, in-order delivery), the KITTI trajectory
-writer and the arena map store. It is built from the port's copy of the
-runtime, `csrc/host/slamio.cpp` (its PNG decoder needs zlib only, no
-libpng), and the repo's `native/src/mapstore.cpp`, with native/Makefile's
-flags, into `build/native/<hash of sources and flags>/libslamio.so` at first
-use. A build holds an `flock` on a lock file in that directory and moves a
-finished library into place with `os.replace`, so processes that start at
-once wait for one build and never load a half-written file. Nothing is
-built when this module is imported.
+`libslamio` provides PNG/PGM decode to 8-bit gray, a multithreaded
+prefetching stereo-frame loader (bounded ring, in-order delivery), the KITTI
+trajectory writer and the arena map store. It is built from the port's copy
+of the runtime, `csrc/host/slamio.cpp`, and the repo's
+`native/src/mapstore.cpp`, with native/Makefile's flags, into
+`build/native/<hash of sources and flags>/libslamio.so` at first use. Its
+PNG decoder needs zlib only, no libpng, and reads every PNG kind (colour
+type, bit depth, Adam7, gAMA / cHRM / sRGB) byte-equal to what the
+original's libpng calls give. A build holds an `flock` on a lock file in
+that directory and moves a finished library into place with `os.replace`,
+so processes that start at once wait for one build and never load a
+half-written file. Nothing is built when this module is imported.
 
 `available()` is False when the build or the load fails, and callers take
 their pure-Python paths; `load_error()` says why.
@@ -220,8 +222,9 @@ def probe_image(path: str) -> Tuple[int, int]:
 
 
 def read_image_gray(path: str) -> np.ndarray:
-    """Decode a grayscale PNG/PGM via the native library (once: the probe
-    that sizes the buffer reads the header only)."""
+    """Decode a PNG of any kind, or a binary PGM, to 8-bit gray via the
+    native library (once: the probe that sizes the buffer reads the header
+    only)."""
     lib = _require()
     h, w = probe_image(path)
     buf = np.empty((h, w), dtype=np.uint8)

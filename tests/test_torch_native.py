@@ -4,8 +4,8 @@ counterpart of tests/test_native.py, run against the port's own modules.
 
 Covers PNG/PGM grayscale decode against PIL and against the libpng build of
 the original runtime (native/src/slamio.cpp), chip_smoke.py's PNG writer
-with every row filter at compression levels 0, 6 and 9, the colour types the
-port's decoder refuses, the multithreaded prefetching stereo loader, the
+with every row filter at compression levels 0, 6 and 9 (the other PNG kinds:
+tests/test_torch_png.py), the multithreaded prefetching stereo loader, the
 KITTI reader's native route, the native trajectory writer and map store
 against the port's Python ones, and the build itself: two processes building
 at once, the library's place, and a CLI run cut short that still exits.
@@ -176,59 +176,6 @@ def test_png_writer_every_filter_read_back(tmp_path, libpng_read, first, level):
         got = native.read_image_gray(str(p))
         np.testing.assert_array_equal(got, expect)
         np.testing.assert_array_equal(got, libpng_read(p))
-
-
-@pytest.mark.parametrize("mode, reason", [
-    ("RGB", "colour type 2 (RGB)"),
-    ("P", "colour type 3 (palette)"),
-    ("LA", "colour type 4 (gray+alpha)"),
-    ("RGBA", "colour type 6 (RGBA)"),
-    ("1", "bit depth 1"),
-    ("interlaced", "interlaced"),
-])
-def test_decoder_refuses_other_png_kinds(tmp_path, libpng_read, mode, reason):
-    """The port decodes 8- and 16-bit non-interlaced grayscale only, and each
-    refusal names what it met; libpng's build converts the other colour
-    types and bit depths to gray and reads Adam7 (ROADMAP Queue C)."""
-    from PIL import Image
-
-    rng = np.random.default_rng(5)
-    gray = rng.integers(0, 256, size=(9, 14), dtype=np.uint8)
-    p = tmp_path / "x.png"
-    if mode == "interlaced":
-        p.write_bytes(_interlaced_png(gray))
-        with Image.open(p) as im:
-            np.testing.assert_array_equal(np.asarray(im), gray)
-    else:
-        Image.fromarray(gray).convert(mode).save(p)
-    with pytest.raises(IOError, match=re.escape(reason)):
-        native.read_image_gray(str(p))
-    with pytest.raises(IOError, match=re.escape(reason)):   # from the header alone
-        native.probe_image(str(p))
-    libpng = libpng_read(p)
-    if mode == "interlaced":
-        np.testing.assert_array_equal(libpng, gray)
-    else:
-        assert libpng.shape == gray.shape
-
-
-def _interlaced_png(gray):
-    """An Adam7 PNG of a gray image (PIL writes none): seven passes of
-    unfiltered rows."""
-    import struct
-    import zlib
-
-    passes = [(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
-              (1, 0, 2, 2), (0, 1, 1, 2)]   # (x0, y0, dx, dy) of each Adam7 pass
-    raw = b"".join(b"".join(b"\0" + row.tobytes() for row in gray[y0::dy, x0::dx])
-                   for x0, y0, dx, dy in passes if gray[y0::dy, x0::dx].size)
-    h, w = gray.shape
-
-    def chunk(tag, data):
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
-
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 1))
-            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
 def _make_sequence(tmp_path, n, h=24, w=32):
