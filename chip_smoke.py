@@ -76,7 +76,18 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
      gather and ZNCC kernels appear, by the names the profiler prints, in
      the detect, describe and stereo rows; the extractor's stage walls sum
      to <= batch_extract's x 1.25; matcher + PnP <= track_step x 1.25; the
-     one-rank schedule is bit-equal to no mesh.
+     one-rank schedule is bit-equal to no mesh;
+ 13. the roofline (the cost model, utils/roofline.py, and the tools that
+     read it), on phase 4's first chunk at Config(): (a) the per-phase
+     report's four rows (profiling/roofline_report.py; phase 12's
+     production times, not measured again); (b) the extractor's stage
+     costs (profiling/extract_cost.py: the disjoint stages must sum to the
+     TOTAL, exactly); (c) the top-k study (profiling/micro_topk.py) at a
+     short r, every strategy that claims the production result equal to
+     it; (d) one chunk counted: records, poses and carry bit-equal to the
+     same chunk uncounted. No MFU or HBM share may exceed 1.05 (no card
+     gives that: it would be a wrong count or time), here or in phase 9's
+     `# roofline` line.
 Each path's kernel launches are counted from 0 just before it runs; on the
 paths of phases 9-11 FAST+NMS and the patch gather launch at least once a
 frame and ZNCC at least once a keyframe. Each phase's wall is logged.
@@ -137,6 +148,8 @@ PROFILE_FLOOR_R = 20
 DEVICE_OVER_WALL = 1.05      # a row's device time may exceed its wall by this
 STAGES_OVER_WHOLE = 1.25     # sub-stage walls against the composed row's
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+TOPK_R = 2                   # phase 13(c)'s r
+SHARE_BOUND = 1.05           # a roofline share above it is a wrong count or time
 
 
 def log(msg: str) -> None:
@@ -474,17 +487,9 @@ def compare_schedules(cfg, mesh, dev, exact):
 def same_run(a, b):
     """What differs between two ChunkedSlam runs: the per-frame records,
     the poses or any array of the final carry (empty: bit-equal)."""
-    from stereo_visual_slam_tpu_torch.models import slam_core
+    from stereo_visual_slam_tpu_torch.pipeline import chunked
 
-    diff = []
-    if a.stats != b.stats:
-        diff.append("records")
-    if sorted(a.estimates) != sorted(b.estimates) or not all(
-            np.array_equal(a.estimates[f], b.estimates[f]) for f in a.estimates):
-        diff.append("poses")
-    ca, cb = slam_core.carry_to_numpy(a.carry), slam_core.carry_to_numpy(b.carry)
-    diff += [k for k in ca if not np.array_equal(ca[k], cb[k])]
-    return diff
+    return chunked.differences(a, b)
 
 
 def run_mesh_one_rank(frames, cfg, ref, dev):
@@ -1028,6 +1033,9 @@ def run_bench_phase(cfg, renderer):
         launches[f"bench_{name}"] = p["launches"]
     if set(launches) != {"bench_default", "bench_hard", "bench_highway"}:
         raise AssertionError(f"phase 9: profiles run: {sorted(launches)}")
+    roof = out["roofline"]   # run_bench raises unless the counted pass is bit-equal
+    if not (0 < roof["mfu"] <= SHARE_BOUND and 0 < roof["hbm_util"] <= SHARE_BOUND):
+        raise AssertionError(f"phase 9: the roofline pass: {roof}")
     # the gate self-test on the full bench's default world: over a few
     # chunks the degraded run's error can sit on the gate's line
     n = CHUNK * (bench.WARMUP_CHUNKS + DEGRADE_CHUNKS)
@@ -1213,6 +1221,66 @@ def run_profilers(cfg, frames, dev):
     return launches, summary
 
 
+def run_roofline(cfg, frames, dev, production_rows):
+    """Phase 13: the per-phase roofline report on phase 12's production
+    times, the extractor's stage costs and the top-k study on phase 4's
+    first chunk, and one chunk counted against the same chunk uncounted."""
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
+    from stereo_visual_slam_tpu_torch.profiling import (
+        extract_cost, micro_topk, production, roofline_report,
+    )
+    from stereo_visual_slam_tpu_torch.utils import roofline
+
+    kernels.reset_launch_counts()
+    sync()
+    images = production.pack(cfg, frames[:production.B], dev)
+    report = roofline_report.run(cfg, dev, images=images,
+                                 timings={r["label"]: r for r in production_rows})
+    log(roofline_report.render(report))
+    costs = extract_cost.run(cfg, dev, images)   # raises unless the stages sum to the TOTAL
+    log(extract_cost.render(costs))
+    topk = micro_topk.run(cfg, dev, r=TOPK_R, best_of=1)   # raises on a wrong claim
+    log(micro_topk.render(topk))
+    t0 = time.perf_counter()
+    staged = ChunkedSlam(cfg, chunk=CHUNK, device=dev).stage(frames[:CHUNK])
+    plain, counted = (ChunkedSlam(cfg, chunk=CHUNK, device=dev) for _ in range(2))
+    plain.run_staged(staged)
+    plain.finish()
+    with roofline.Counter() as counter:
+        counted.run_staged(staged)
+        counted.finish()
+    sync()
+    launches = kernels.launch_counts()
+    diff = same_run(plain, counted)
+    log(f"roofline (d): one chunk counted in {time.perf_counter() - t0:.1f} s with its uncounted "
+        f"twin: {counter.flops / 1e9:.4f} GFLOP, {counter.bytes_accessed / 1e9:.4f} GB, kernel "
+        f"units {counter.units}; differs from uncounted in: {diff or 'nothing'}; launches "
+        f"{launches}")
+    if diff:
+        raise AssertionError(f"phase 13(d): the counted chunk differs in {diff}")
+    shares = [(r["label"], k, r[k]) for r in report["rows"]
+              for k in ("mfu_device", "hbm_device", "mfu_wall", "hbm_wall")]
+    bad = [s for s in shares if not (s[2] is not None and 0 < s[2] <= SHARE_BOUND)]
+    if bad:
+        raise AssertionError(f"phase 13: shares outside (0, {SHARE_BOUND}]: {bad}")
+    total = costs["rows"][0]
+    parts = [r for r in costs["rows"][1:] if r["disjoint"]]
+    log(f"roofline: the {len(parts)} disjoint stages sum to {sum(r['gflop'] for r in parts):.6f} "
+        f"GFLOP, {sum(r['gb'] for r in parts):.6f} GB; TOTAL {total['gflop']:.6f} GFLOP, "
+        f"{total['gb']:.6f} GB; every share within (0, {SHARE_BOUND}]")
+    check_launches(launches, "roofline")
+    return launches, dict(
+        report=report["rows"], peaks=report["peaks"], extract_cost=costs["rows"],
+        extract_units=costs["units"], counted_chunk=dict(
+            gflop=counter.flops / 1e9, gb=counter.bytes_accessed / 1e9, units=counter.units),
+        micro_topk=[dict(letter=r["letter"], label=r["label"], absent=r["absent"],
+                         production_result=r["production_result"],
+                         **({} if r["row"] is None else {
+                             k: r["row"][k] for k in ("wall_ms", "device_ms", "launches")}))
+                    for r in topk["rows"]])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1281,6 +1349,8 @@ def main() -> int:
         launches["soak"], soaked = phase("11 soak", run_short_soak, cfg, renderer)
     profile_launches, profiled = phase("12 profilers", run_profilers, cfg, frames, dev)
     launches.update(profile_launches)
+    launches["roofline"], roofs = phase("13 roofline", run_roofline, cfg, frames, dev,
+                                        profiled["production"])
     walls["total"] = time.perf_counter() - t_start
     log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
 
@@ -1302,7 +1372,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "host_driver": host_rates,
                       "mesh": {"nccl_1_rank": mesh_one, f"gloo_{MESH_RANKS}_ranks": mesh_two},
                       "dataset": dataset, **benched, "entry_points": entry_points,
-                      "soak": soaked, "profilers": profiled, "phase_walls_s": walls,
+                      "soak": soaked, "profilers": profiled, "roofline": roofs,
+                      "phase_walls_s": walls,
                       "brief_bit_flips": [g["brief_bit_flips"], g["brief_bits"]],
                       "steered_bit_flips": [g["steered_bit_flips"], g["brief_bits"]]}))
     print(card)

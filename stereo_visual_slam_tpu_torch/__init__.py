@@ -18,7 +18,8 @@ Layout:
                 and the visualisation writers
   mapping/      the host-side keyframe/landmark map of the host driver
   data/         the synthetic world and the KITTI reader
-  utils/        the config and its YAML load/save
+  utils/        the config and its YAML load/save, the cost model
+                (roofline.py)
   csrc/         CUDA C++ sources for sm_90a
 
 The config, data sources, map store, trajectory tools and visualisation

@@ -31,7 +31,14 @@ default 8) frames.
 
 The port compiles nothing, so warm-up chunks take the place of the JAX
 bench's compile warm-up, and per-chunk walls on the host clock the place of
-its dispatch/fetch timers; it has no cost model, so no roofline is printed.
+its dispatch/fetch timers. The `# roofline` line is the JAX bench's: after
+the timed runs a fresh ChunkedSlam warm-starts on the same warm-up buffers
+and runs every timed chunk once more under the port's cost model
+(utils/roofline.py, which counts while it runs: every scan frame and LM
+iteration), outside every timed section; its records, poses and carry must
+equal the best timed run's bit for bit. It prints the mean GFLOP and GB a
+chunk over the best run's wall a chunk, and the shares of the card's fp32
+and HBM peaks they give.
 Frames render on a process pool (data/render_pool), outside every timed
 section; each timed section ends in a device synchronize.
 """
@@ -50,8 +57,10 @@ import torch
 
 from stereo_visual_slam_tpu_torch.data import render_pool, synthetic
 from stereo_visual_slam_tpu_torch.ops import kernels
+from stereo_visual_slam_tpu_torch.pipeline import chunked
 from stereo_visual_slam_tpu_torch.pipeline import trajectory as traj_mod
 from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
+from stereo_visual_slam_tpu_torch.utils import roofline
 from stereo_visual_slam_tpu_torch.utils.config import Config
 
 # The C++ reference's published costs on its own CPU (its README.md:90):
@@ -134,6 +143,34 @@ def _counts(slams) -> dict:
                 keyframes=sum(sum(1 for r in s.stats if r["keyframe"]) for s in slams))
 
 
+def roofline_pass(cfg, chunk, device, warm_bufs, timed_bufs, best: ChunkedSlam,
+                  wall_chunk_s: float, log) -> dict:
+    """The timed chunks once more under the cost model, on a fresh
+    ChunkedSlam warm-started on the warm-up buffers as the timed runs
+    were; raises unless the run equals `best` bit for bit. Logs the
+    `# roofline` line of the mean cost a chunk over `wall_chunk_s`."""
+    slam = ChunkedSlam(cfg, chunk=chunk, device=device)
+    slam.run_staged(warm_bufs)
+    with roofline.Counter() as counter:
+        for buf in timed_bufs:
+            slam.run_staged([buf])
+        slam.finish()
+    _sync(device)
+    diff = chunked.differences(best, slam)
+    if diff:
+        raise RuntimeError(f"the counted pass differs from the timed run in {diff}")
+    n = len(timed_bufs)
+    cost = roofline.ProgramCost(counter.flops / n, counter.bytes_accessed / n)
+    peaks = roofline.chip_peaks(device)
+    log("# roofline " + roofline.summarize(
+        f"chunk program (B={chunk}; every scan frame and LM iteration counted)", cost,
+        wall_chunk_s, peaks))
+    return dict(flops_per_chunk=cost.flops, bytes_per_chunk=cost.bytes_accessed,
+                wall_chunk_s=wall_chunk_s, mfu=cost.mfu(wall_chunk_s, peaks),
+                hbm_util=cost.hbm_util(wall_chunk_s, peaks), peaks=peaks.name, chunks=n,
+                units={k: v[0] for k, v in counter.units.items()})
+
+
 def _stderr(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
@@ -144,7 +181,8 @@ def run_bench(cfg: Config, *, device, renderer: render_pool.Renderer, chunk: int
     """The whole benchmark on `cfg`, its frames rendered by `renderer`.
     Returns {"line": the JSON line's dict, "profiles": {name: accuracy,
     verdict, gate, kernel launches and the frames and keyframes run},
-    "timed", "streaming", "rolling": walls}."""
+    "timed", "streaming", "rolling": walls, "roofline": the counted
+    pass's cost a chunk and shares (`roofline_pass`)}."""
     device = torch.device(device)
     stager = ChunkedSlam(cfg, chunk=chunk, device=device)   # raises without a card
     n_frames = chunk * (WARMUP_CHUNKS + n_chunks)
@@ -224,6 +262,9 @@ def run_bench(cfg: Config, *, device, renderer: render_pool.Renderer, chunk: int
         f"max={ms.max():.1f} sum={ms.sum() / 1e3:.2f}s | syncs/frame {syncs / n_timed:.3f} | "
         f"peak device memory {peak_text}")
 
+    roof = roofline_pass(cfg, chunk, device, warm_bufs, timed_bufs, slam,
+                         t_timed / max(n_timed, 1) * chunk, log)
+
     for profile, n_prof in (("hard", hard_frames), ("highway", highway_frames)):
         if n_prof <= 0:
             continue
@@ -242,7 +283,7 @@ def run_bench(cfg: Config, *, device, renderer: render_pool.Renderer, chunk: int
 
     line = {"metric": "frames_per_s", "value": round(fps, 3), "unit": "frames/s",
             "vs_baseline": round(ref_time / t_timed, 3) if t_timed else 0.0}
-    return dict(line=line, profiles=profiles, **passes, timed=dict(
+    return dict(line=line, profiles=profiles, **passes, roofline=roof, timed=dict(
         frames=n_timed, keyframes=n_kf_timed, wall_s=t_timed, chunk_wall_ms=dict(
             p50=float(p50), p90=float(p90), max=float(ms.max())),
         syncs_per_frame=syncs / n_timed, peak_bytes=peak))

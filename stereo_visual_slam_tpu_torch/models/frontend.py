@@ -114,9 +114,11 @@ class ExtractStages:
     BRIEF matrix (built once on `device`). The profilers time them one
     stage at a time (profiling/production.py).
 
-    Per level i: `level_image` (the pyramid), `detect` (FAST+NMS, border,
-    pooled top-k), `blur`, `describe` (patch gather + BRIEF); then `merge`
-    concatenates the levels and runs `anms` and, eagerly, the depth."""
+    Per level i: `level_image` (the pyramid), `detect` (`score_map`:
+    FAST+NMS and the border; `topk`: the pooled top-k), `blur`, `describe`
+    (patch gather + BRIEF); then `merge`: `table` concatenates the levels
+    and runs `anms`, `depth`, eagerly, the stereo search, and `features`
+    assembles the FrameFeatures."""
 
     def __init__(self, config: Config, device):
         fe = config.frontend
@@ -157,6 +159,12 @@ class ExtractStages:
         """FAST+NMS on level i's images (B, H_i, W_i) stacked to
         (B*H_i, W_i), the border mask and the pooled top-k. Returns
         (stacked, scores (B, n_i), yx (B, n_i, 2) int32)."""
+        stacked, score = self.score_map(i, imgs)
+        return (stacked, *self.topk(i, score))
+
+    def score_map(self, i: int, imgs: torch.Tensor):
+        """(stacked (B*H_i, W_i), the NMS'd score map (B, H_i, W_i) zeroed
+        outside the border) of level i's images."""
         fe = self.config.frontend
         B = imgs.shape[0]
         H_i, W_i = self.levels[i][2]
@@ -165,9 +173,12 @@ class ExtractStages:
             score = fast_kernel.fast_nms_score_map(stacked, fe.fast_threshold)
         else:
             score = fast_kernel.fast_nms_plain(stacked, fe.fast_threshold)
-        score = torch.where(self.in_border[i], score.reshape(B, H_i, W_i), 0.0)
-        top_scores, yx = fast_ops.nms_topk(score, self.levels[i][3])
-        return stacked, top_scores, yx
+        return stacked, torch.where(self.in_border[i], score.reshape(B, H_i, W_i), 0.0)
+
+    def topk(self, i: int, score: torch.Tensor):
+        """(scores (B, n_i), yx (B, n_i, 2) int32): level i's budget of the
+        pooled top-k."""
+        return fast_ops.nms_topk(score, self.levels[i][3])
 
     def blur(self, stacked: torch.Tensor) -> torch.Tensor:
         return im_ops.box_blur(stacked, self.config.frontend.blur_box)
@@ -202,43 +213,56 @@ class ExtractStages:
         """FrameFeatures (leading B axis) of the levels' (scores, yx,
         packed, signs), in level order; `with_depth=False` zeroes the
         depth fields."""
+        table = self.table(per_level)
+        return self.features(table, self.depth(images, table) if with_depth else None)
+
+    def features(self, table: dict, depth=None) -> FrameFeatures:
+        """FrameFeatures of a `table` and its `depth` fields (None: zeros)."""
+        if depth is None:
+            B, N = table["score"].shape
+            zero = torch.zeros((B, N), dtype=torch.float32, device=self.device)
+            no = torch.zeros((B, N), dtype=torch.bool, device=self.device)
+            depth = dict(
+                disparity=zero, depth=zero, depth_valid=no, reliable=no,
+                pts_cam=torch.zeros((B, N, 3), dtype=torch.float32, device=self.device),
+            )
+        return FrameFeatures(**{k: v for k, v in table.items() if k != "yx_int"}, **depth)
+
+    def table(self, per_level) -> dict:
+        """The levels' (scores, yx, packed, signs) concatenated in level
+        order, with the validity, the ANMS mask and the rounded coords
+        `yx_int`: every FrameFeatures field but the depth ones."""
         vh, vw = self.config.image_hw
-        device = self.device
-        B = images.shape[0]
+        B = per_level[0][0].shape[0]
         yx_f = torch.cat([yx.float() * s for (s, _, _, _), (_, yx, _, _)
                           in zip(self.levels, per_level)], dim=1)
         yx_int = torch.round(yx_f).to(torch.int32)
         score = torch.cat([p[0] for p in per_level], dim=1)
-        scale = torch.cat([torch.full((B, p[1].shape[1]), s, dtype=torch.float32, device=device)
+        scale = torch.cat([torch.full((B, p[1].shape[1]), s, dtype=torch.float32,
+                                      device=self.device)
                            for (s, _, _, _), p in zip(self.levels, per_level)], dim=1)
         valid = (score > 0.0) & (yx_int[..., 0] < vh) & (yx_int[..., 1] < vw)
-        spawn_mask = self.anms(yx_int, score)
-        N = yx_int.shape[1]
-        if with_depth:
-            # one sweep over all frames' keypoints on the stacked full-res
-            # pair; frame b's rows are offset by b * H0
-            H0, W0 = images.shape[2:]
-            row_off = (torch.arange(B, device=device, dtype=torch.int32) * H0)[:, None]
-            yx_st = torch.stack([yx_int[..., 0] + row_off, yx_int[..., 1]], dim=-1)
-            depth = _depth_fields(
-                self.config, images[:, 0].float().reshape(B * H0, W0),
-                images[:, 1].float().reshape(B * H0, W0),
-                yx_st.reshape(B * N, 2).contiguous(), yx_f.reshape(B * N, 2),
-                valid.reshape(B * N),
-            )
-            depth = {k: v.reshape(B, N, *v.shape[1:]) for k, v in depth.items()}
-        else:
-            zero = torch.zeros((B, N), dtype=torch.float32, device=device)
-            no = torch.zeros((B, N), dtype=torch.bool, device=device)
-            depth = dict(
-                disparity=zero, depth=zero, depth_valid=no, reliable=no,
-                pts_cam=torch.zeros((B, N, 3), dtype=torch.float32, device=device),
-            )
-        return FrameFeatures(
-            yx=yx_f, score=score, scale=scale, valid=valid, spawn_mask=spawn_mask,
-            signs=torch.cat([p[3] for p in per_level], dim=1),
-            packed=torch.cat([p[2] for p in per_level], dim=1), **depth,
+        return dict(yx=yx_f, score=score, scale=scale, valid=valid,
+                    spawn_mask=self.anms(yx_int, score),
+                    signs=torch.cat([p[3] for p in per_level], dim=1),
+                    packed=torch.cat([p[2] for p in per_level], dim=1), yx_int=yx_int)
+
+    def depth(self, images: torch.Tensor, table: dict) -> dict:
+        """The five depth fields (B, N, ...) of `table`'s keypoints: one
+        sweep over all frames' keypoints on the stacked full-res pair,
+        frame b's rows offset by b * H0."""
+        yx_int, yx_f, valid = table["yx_int"], table["yx"], table["valid"]
+        B, N = valid.shape
+        H0, W0 = images.shape[2:]
+        row_off = (torch.arange(B, device=self.device, dtype=torch.int32) * H0)[:, None]
+        yx_st = torch.stack([yx_int[..., 0] + row_off, yx_int[..., 1]], dim=-1)
+        depth = _depth_fields(
+            self.config, images[:, 0].float().reshape(B * H0, W0),
+            images[:, 1].float().reshape(B * H0, W0),
+            yx_st.reshape(B * N, 2).contiguous(), yx_f.reshape(B * N, 2),
+            valid.reshape(B * N),
         )
+        return {k: v.reshape(B, N, *v.shape[1:]) for k, v in depth.items()}
 
 
 def make_batch_extractor(config: Config, device, with_depth: bool = True):

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from stereo_visual_slam_tpu_torch.ops import fast
-from stereo_visual_slam_tpu_torch.ops.kernels import _build
+from stereo_visual_slam_tpu_torch.ops.kernels import _build, measure
+from stereo_visual_slam_tpu_torch.utils import roofline
 
 
 def fast_nms_plain(img: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -36,9 +37,11 @@ def fast_nms_cuda(img: torch.Tensor, threshold: float) -> torch.Tensor:
 fast_nms_cuda.launches = 0
 
 
+@roofline.kernel_unit("fast_nms", lambda img, threshold=20.0: measure.fast_work(img, threshold))
 def fast_nms_score_map(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
     """NMS'd FAST score map of img (H, W) f32: the plain version for a CPU
-    tensor, the CUDA kernel for a CUDA tensor."""
+    tensor, the CUDA kernel for a CUDA tensor. The cost model counts a call
+    as one unit of `measure.fast_work`."""
     if img.device.type == "cpu":
         return fast_nms_plain(img, threshold)
     return fast_nms_cuda(img, threshold)

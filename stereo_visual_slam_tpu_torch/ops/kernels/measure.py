@@ -21,7 +21,10 @@ current kernels are also checked against their plain versions and the
 parent's (FAST+NMS and the gather bit-exact, ZNCC atol 2e-5).
 
 The module also holds what `chip_smoke.py` needs for the same shapes: the
-inputs and each kernel's bound (the least time the card could take).
+inputs and each kernel's bound (the least time the card could take), from
+each kernel's work (`fast_work`, `gather_work`, `zncc_work`: bytes and
+operations), which the cost model (utils/roofline.py) counts for a call of
+the kernel's wrapper too.
 """
 
 from __future__ import annotations
@@ -39,11 +42,8 @@ import numpy as np
 import torch
 
 from stereo_visual_slam_tpu_torch.ops.kernels import _build
+from stereo_visual_slam_tpu_torch.utils.roofline import PEAK_BYTES, PEAK_F32
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s outside the
-# tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 ZNCC_ATOL = 2e-5
 FRAMES = 8
 # operations per pixel of FAST+NMS: the compass test (4 differences, 8
@@ -83,18 +83,34 @@ def compass_pass(img: torch.Tensor, threshold: float) -> torch.Tensor:
     return ((d > threshold).sum(0) >= 2) | ((-d > threshold).sum(0) >= 2)
 
 
-def fast_bound(img: torch.Tensor, threshold: float) -> tuple:
+# Each kernel's work on its inputs, (bytes, operations): every input read
+# once and every output written once, and the operations these inputs need.
+# The bounds below and the cost model's kernel units (utils/roofline.py)
+# both count it.
+def fast_work(img: torch.Tensor, threshold: float) -> tuple:
     n = img.numel()
     ops = n * FAST_OPS_ALL + int(compass_pass(img, threshold).sum()) * FAST_OPS_CANDIDATE
-    return bound(8.0 * n, ops)
+    return 8.0 * n, float(ops)
+
+
+def gather_work(img: torch.Tensor, n: int, patch: int) -> tuple:
+    return 4.0 * img.numel() + 8.0 * n + 4.0 * n * patch * patch, 0.0
+
+
+def zncc_work(img: torch.Tensor, n: int, patch: int, D: int) -> tuple:
+    return 8.0 * img.numel() + 8.0 * n + 4.0 * n * D, float(ZNCC_FLOPS * n * D * patch * patch)
+
+
+def fast_bound(img: torch.Tensor, threshold: float) -> tuple:
+    return bound(*fast_work(img, threshold))
 
 
 def gather_bound(img: torch.Tensor, n: int, patch: int) -> tuple:
-    return bound(4.0 * img.numel() + 8.0 * n + 4.0 * n * patch * patch, 0.0)
+    return bound(*gather_work(img, n, patch))
 
 
 def zncc_bound(img: torch.Tensor, n: int, patch: int, D: int) -> tuple:
-    return bound(8.0 * img.numel() + 8.0 * n + 4.0 * n * D, ZNCC_FLOPS * n * D * patch * patch)
+    return bound(*zncc_work(img, n, patch, D))
 
 
 def production_frames(n_frames: int = FRAMES):

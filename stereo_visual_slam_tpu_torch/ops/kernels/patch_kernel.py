@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 
 from stereo_visual_slam_tpu_torch.ops import image
-from stereo_visual_slam_tpu_torch.ops.kernels import _build
+from stereo_visual_slam_tpu_torch.ops.kernels import _build, measure
+from stereo_visual_slam_tpu_torch.utils import roofline
 
 
 def gather_patches_plain(
@@ -56,12 +57,15 @@ def gather_patches_cuda(
 gather_patches_cuda.launches = 0
 
 
+@roofline.kernel_unit("gather_patches", lambda img, yx, patch=33, frame_h=None:
+                      measure.gather_work(img, yx.shape[0], patch))
 def gather_patches(
     img: torch.Tensor, yx: torch.Tensor, patch: int = 33,
     frame_h: Optional[int] = None,
 ) -> torch.Tensor:
     """(N, patch, patch) f32 patches: the plain version for a CPU tensor,
-    the CUDA kernel for a CUDA tensor."""
+    the CUDA kernel for a CUDA tensor. The cost model counts a call as one
+    unit of `measure.gather_work`."""
     if img.device.type == "cpu":
         return gather_patches_plain(img, yx, patch, frame_h)
     return gather_patches_cuda(img, yx, patch, frame_h)

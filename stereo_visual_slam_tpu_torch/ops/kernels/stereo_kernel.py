@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from stereo_visual_slam_tpu_torch.ops import stereo
-from stereo_visual_slam_tpu_torch.ops.kernels import _build
+from stereo_visual_slam_tpu_torch.ops.kernels import _build, measure
+from stereo_visual_slam_tpu_torch.utils import roofline
 
 MAX_DISPARITY = 128  # 32 lanes x at most 4 disparities each
 MAX_PATCH = 15      # the kernel is instantiated for odd patches 3..15
@@ -58,12 +59,15 @@ def zncc_sweep_cuda(
 zncc_sweep_cuda.launches = 0
 
 
+@roofline.kernel_unit("zncc_sweep", lambda left, right, yx, *, patch=11, max_disparity=96:
+                      measure.zncc_work(left, yx.shape[0], patch, max_disparity))
 def zncc_sweep(
     left: torch.Tensor, right: torch.Tensor, yx: torch.Tensor, *,
     patch: int = 11, max_disparity: int = 96,
 ) -> torch.Tensor:
     """(N, D) ZNCC scores: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors. The cost model counts a call as one unit of
+    `measure.zncc_work`."""
     if left.device.type == "cpu":
         return zncc_sweep_plain(left, right, yx, patch=patch, max_disparity=max_disparity)
     return zncc_sweep_cuda(left, right, yx, patch=patch, max_disparity=max_disparity)

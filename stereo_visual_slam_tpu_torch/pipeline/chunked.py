@@ -325,3 +325,17 @@ class ChunkedSlam:
         assert int(z["chunked_version"]) == 1
         self.carry = slam_core.carry_from_numpy(z, self.device)
         self.lost = bool(z["lost"])
+
+
+def differences(a: ChunkedSlam, b: ChunkedSlam) -> List[str]:
+    """What differs between two runs: "records" (the per-frame rows),
+    "poses", or the names of the final carry's arrays that differ; empty
+    when the runs are bit-equal."""
+    diff = []
+    if a.stats != b.stats:
+        diff.append("records")
+    if sorted(a.estimates) != sorted(b.estimates) or not all(
+            np.array_equal(a.estimates[f], b.estimates[f]) for f in a.estimates):
+        diff.append("poses")
+    ca, cb = slam_core.carry_to_numpy(a.carry), slam_core.carry_to_numpy(b.carry)
+    return diff + [k for k in ca if not np.array_equal(ca[k], cb[k])]

@@ -9,6 +9,12 @@ counterparts of the JAX package's device-time tools.
                  matcher, PnP-RANSAC
     window       tools/window_growth.py and tools/scaling_bench.py: the BA
                  schedule as the window grows, and sharded over ranks
+    roofline_report  tools/roofline_report.py: GFLOP, GB and the MFU and
+                 HBM shares of chunk_step, batch_extract, the feats step
+                 and the BA schedule (the cost model: utils/roofline.py)
+    extract_cost tools/profile_extract_cost.py: batch_extract's GFLOP and
+                 GB, stage by stage
+    micro_topk   tools/micro_topk.py: top-k and detect strategies, timed
 
 Each runs as `python -m stereo_visual_slam_tpu_torch.profiling.<name>`
 (default `--device cuda`, which needs the card), prints a table and, last,

@@ -30,8 +30,9 @@ dispatches every launch.
 
 from __future__ import annotations
 
+import contextlib
 import sys
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -49,6 +50,8 @@ N_POINTS = 8000
 # cut to the image for smaller configs
 ANMS_YX_HIGH = (350, 1200)
 COMPOSED = 3  # the first three rows: chunk_step, batch_extract, feats scan
+# extract_by_stages's stages, in its order ("blur" runs inside "describe")
+STAGES = ("pyramid", "score", "topk", "describe", "blur", "anms", "stereo")
 
 
 def labels(cfg) -> List[str]:
@@ -93,18 +96,32 @@ def feats_scan(step, carry, feats, images, frame_ids, noise):
     return carry
 
 
-def extract_by_stages(st: ExtractStages, images: torch.Tensor, with_depth: bool = False):
+def extract_by_stages(st: ExtractStages, images: torch.Tensor, with_depth: bool = False,
+                      scope: Callable = lambda stage: contextlib.nullcontext()):
     """batch_extract composed from the stage rows' calls, stage by stage:
-    the pyramid, detect, blur and describe at every level, then the merge
-    (which runs ANMS). Its FrameFeatures equal batch_extract's."""
-    left = images[:, 0].float()
+    the pyramid, the score maps and the pooled top-k at every level, blur
+    and describe at every level, the levels' table (which runs ANMS), the
+    depth. Its FrameFeatures equal batch_extract's. Each stage's calls run
+    inside `scope(stage)`, stage one of STAGES ("blur" inside "describe")."""
     n = len(st.levels)
-    pyramid = [st.level_image(left, i) for i in range(n)]
-    detected = [st.detect(i, pyramid[i]) for i in range(n)]
-    blurred = [st.blur(stacked) for stacked, _, _ in detected]
-    described = [st.describe(i, blurred[i], detected[i][2]) for i in range(n)]
-    return st.merge(images, [(d[1], d[2], p, s) for d, (p, s) in zip(detected, described)],
-                    with_depth)
+    with scope("pyramid"):
+        left = images[:, 0].float()
+        pyramid = [st.level_image(left, i) for i in range(n)]
+    with scope("score"):
+        scored = [st.score_map(i, pyramid[i]) for i in range(n)]
+    with scope("topk"):
+        tops = [st.topk(i, score) for i, (_, score) in enumerate(scored)]
+    with scope("describe"):
+        described = []
+        for i, (stacked, _) in enumerate(scored):
+            with scope("blur"):
+                blurred = st.blur(stacked)
+            described.append(st.describe(i, blurred, tops[i][1]))
+    with scope("anms"):
+        table = st.table([(s, yx, p, g) for (s, yx), (p, g) in zip(tops, described)])
+    with scope("stereo"):
+        depth = st.depth(images, table) if with_depth else None
+    return st.features(table, depth)
 
 
 def random_inputs(cfg, st: ExtractStages, device):

@@ -10,8 +10,9 @@ stream, and `measure` keeps per iteration:
              length the best of `best_of` runs that end in synchronize(),
              the lengths taken in turn after `WARM_S` of warm-up: what the
              driver pays for the phase;
-  device_ms  the device's busy time (kernels, copies, memsets) in one
-             torch.profiler run of r iterations, divided by r; the run is
+  device_ms  the device's busy time (kernels, copies, memsets; the union
+             of their intervals, so that kernels that overlap count once)
+             in one torch.profiler run of r iterations, divided by r; the run is
              queued behind a spin kernel, so that the device meets the
              iterations as it does untraced, back to back where the host
              is ahead of it;
@@ -122,14 +123,29 @@ def device_info(device: torch.device) -> dict:
                 count=os.cpu_count(), card=None, threads=torch.get_num_threads())
 
 
-def _device_events(prof) -> dict:
-    """name -> [device us, count] of the profile's device events (kernels,
-    copies, memsets), summed as tools/profile_torch_slice.py sums
-    key_averages()'s device rows, but read from the raw events:
-    key_averages() takes ~0.1 ms an event, too long for a chunk. The
-    profiler step's annotation, which the trace mirrors onto the device
-    over the whole step, is no device work and is left out, as is the
-    spin that the traced run starts behind."""
+def busy_us(intervals) -> float:
+    """The length of the union of (start, end) intervals: the time the
+    device was busy, where kernels that overlap (a dependent launch that
+    starts before its predecessor ends) count once."""
+    busy, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def _device_events(prof):
+    """(name -> [device us, count] of the profile's device events (kernels,
+    copies, memsets), the device's busy us: the union of their intervals),
+    summed as tools/profile_torch_slice.py sums key_averages()'s device
+    rows, but read from the raw events: key_averages() takes ~0.1 ms an
+    event, too long for a chunk. The profiler step's annotation, which the
+    trace mirrors onto the device over the whole step, is no device work
+    and is left out, as is the spin that the traced run starts behind."""
     from torch.autograd import DeviceType
 
     out: dict = {}
@@ -139,7 +155,8 @@ def _device_events(prof) -> dict:
             if (e.device_type == DeviceType.CUDA and not e.key.startswith(_STEP)
                     and _SPIN not in e.key):
                 out[e.key] = [e.self_device_time_total, e.count]
-        return out
+        return out, sum(us for us, _ in out.values())
+    intervals = []
     for e in results.events():
         kind = str(getattr(e, "activity_type", lambda: "")())
         if (e.device_type() == DeviceType.CUDA and "annotation" not in kind
@@ -147,7 +164,8 @@ def _device_events(prof) -> dict:
             acc = out.setdefault(e.name(), [0.0, 0])
             acc[0] += e.duration_ns() / 1e3
             acc[1] += 1
-    return out
+            intervals.append((e.start_ns() / 1e3, e.start_ns() / 1e3 + e.duration_ns() / 1e3))
+    return out, busy_us(intervals)
 
 
 def _trace(fn: Callable, device: torch.device, r: int) -> dict:
@@ -186,10 +204,10 @@ def _trace(fn: Callable, device: torch.device, r: int) -> dict:
     for w in waits:
         site = f"{os.path.relpath(w.filename, _ROOT)}:{w.lineno}"
         sites[site] = sites.get(site, 0) + 1
-    (events,) = traced
+    ((events, busy),) = traced
     top = sorted(events.items(), key=lambda kv: -kv[1][0])[:TOP_OPS]
     return dict(
-        device_ms=sum(us for us, _ in events.values()) / 1e3 / r,
+        device_ms=busy / 1e3 / r,
         launches=sum(n for _, n in events.values()) / r,
         syncs=len(waits) / r,
         sync_sites={k: v / r for k, v in sorted(sites.items(), key=lambda kv: -kv[1])[:TOP_OPS]},
@@ -271,17 +289,21 @@ def header(tool: str, device: torch.device, r: int, best_of: int) -> dict:
                 torch=torch.__version__)
 
 
-def cli(tool: str, doc: str, run: Callable, render: Callable, default_r: int,
+def cli(tool: str, doc: str, run: Callable, render: Callable, default_r: Optional[int],
         argv=None) -> int:
     """The entry point every profiler shares: parse, refuse a missing card,
-    run, print the table, then the JSON line last (also written to
-    --out/profile_<tool>.json)."""
+    run on Config() (with --params' overrides), print the table (unless
+    --json), then the JSON line last (also written to
+    --out/profile_<tool>.json). A tool that times nothing has no --r."""
     p = argparse.ArgumentParser(prog=f"python -m stereo_visual_slam_tpu_torch.profiling.{tool}",
                                 description=doc,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    p.add_argument("--r", type=int, default=default_r,
-                   help=f"iterations of the shorter length (default {default_r})")
+    if default_r is not None:
+        p.add_argument("--r", type=int, default=default_r,
+                       help=f"iterations of the shorter length (default {default_r})")
+    p.add_argument("--params", help="YAML config overrides (needs pyyaml)")
+    p.add_argument("--json", action="store_true", help="print the JSON line only")
     p.add_argument("--out", default="build/profile", help="directory of the JSON line")
     args = p.parse_args(argv)
     try:
@@ -291,8 +313,14 @@ def cli(tool: str, doc: str, run: Callable, render: Callable, default_r: int,
         return 2
     from stereo_visual_slam_tpu_torch.utils.config import Config
 
-    result = run(Config(), device, r=args.r)
-    print(render(result), flush=True)
+    cfg = Config()
+    if args.params:
+        from stereo_visual_slam_tpu_torch.utils import config_io
+
+        cfg = config_io.config_from_yaml(args.params, cfg)
+    result = run(cfg, device, **({} if default_r is None else dict(r=args.r)))
+    if not args.json:
+        print(render(result), flush=True)
     line = json.dumps(result)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"profile_{tool}.json"), "w") as f:

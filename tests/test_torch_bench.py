@@ -147,6 +147,17 @@ def test_run_bench_small(capsys):
     for what in ("run 0 (staged)", "streaming", "rolling", "default profile", "per-chunk wall",
                  "hard profile (8 frames)", "highway profile (8 frames)"):
         assert what in err, what
+    # the counted pass: bit-equal to the timed run (roofline_pass raises
+    # otherwise), its cost a chunk over the timed wall a chunk, on stderr
+    roof = out["roofline"]
+    assert roof["chunks"] == 1 and roof["peaks"] == "generic"
+    assert roof["flops_per_chunk"] > 0 and roof["bytes_per_chunk"] > 0
+    assert roof["wall_chunk_s"] == pytest.approx(t["wall_s"])
+    assert roof["units"]["fast_nms"] == 3 and roof["units"]["gather_patches"] == 3
+    line = next(ln for ln in err.splitlines() if ln.startswith("# roofline "))
+    assert line.startswith("# roofline chunk program (B=2; every scan frame and LM iteration "
+                           "counted): ")
+    assert f"{roof['flops_per_chunk'] / 1e9:.3f} GFLOP" in line and "% MFU / " in line
 
 
 def test_main_prints_one_json_line(monkeypatch, tmp_path):

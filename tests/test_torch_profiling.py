@@ -236,3 +236,14 @@ def test_cpu_reports_no_device_numbers(tmp_path):
             assert row[key] is None, key
     row = timing.measure(lambda: None, "nothing", "cpu", r=2, best_of=1, per=8)
     assert row["device_ms"] is None and row["launches"] is None and row["per"] == 8
+
+
+@pytest.mark.parametrize("intervals,busy", [
+    ([], 0.0),
+    ([(0, 2), (3, 4)], 3.0),                  # apart: the sum
+    ([(0, 2), (1, 4)], 4.0),                  # a dependent launch starting early
+    ([(3, 4), (0, 10), (2, 5)], 10.0),        # nested, out of order
+    ([(0, 1), (1, 2), (1.5, 2.5)], 2.5),      # touching, then overlapping
+])
+def test_device_busy_time_counts_overlapping_kernels_once(intervals, busy):
+    assert timing.busy_us(intervals) == busy

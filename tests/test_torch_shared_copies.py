@@ -298,6 +298,9 @@ bad = sorted(k for k in sys.modules
              or k.startswith(("jax.", "stereo_visual_slam_tpu.")))
 assert not bad, bad
 assert len(names) > 40, names
+new = {port.__name__ + m for m in (".utils.roofline", ".profiling.roofline_report",
+                                   ".profiling.extract_cost", ".profiling.micro_topk")}
+assert new <= set(names), sorted(new - set(names))
 print(len(names))
 """
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
