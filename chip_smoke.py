@@ -7,11 +7,16 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
   2. build the CUDA kernels from stereo_visual_slam_tpu_torch/csrc;
   3. each kernel against its plain torch version at the main path's shapes
      (FAST+NMS on all 8 pyramid levels and the patch gather at every
-     level's keypoint budget, bit-exact; ZNCC at N=2,048 and at the stacked
-     N=16,384, atol 2e-5 with match_disparity's gates equal), with the
-     device times of the kernel, the plain version and, for the gather, one
-     PyTorch indexing call; each kernel's bound (ops/kernels/measure.py);
-     the BRIEF bit-flip rate against the CPU;
+     level's keypoint budget, bit-exact, the gather also over all 8 levels
+     in one launch, the main path's call, per level and whole; ZNCC at
+     N=2,048 and at the stacked N=16,384, atol 2e-5 with match_disparity's
+     gates equal), with the device times of the kernel, the plain version
+     and, for the gather, one PyTorch indexing call (the all-levels gather
+     also L2-cold); each kernel's bound (ops/kernels/measure.py; the
+     gather's counts the image pixels under its windows); the BRIEF bit-flip rate against the CPU;
+     batch_extract on the first chunk (B=8) and its first frame (B=1)
+     bit-equal to its composition through the per-level
+     ExtractStages.describe, with one patch-gather launch a call;
   4. the slice: production Config(), a 64-frame synthetic world, ChunkedSlam
      with chunk 8 on the card, streamed frame by frame (process/flush, the
      CLI's default path); not Lost, >= 90 % tracked, BA ran, the
@@ -89,8 +94,11 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
      gives that: it would be a wrong count or time), here or in phase 9's
      `# roofline` line.
 Each path's kernel launches are counted from 0 just before it runs; on the
-paths of phases 9-11 FAST+NMS and the patch gather launch at least once a
-frame and ZNCC at least once a keyframe. Each phase's wall is logged.
+driver paths of phases 4-11 every batch_extract call (one a chunk on the
+chunked paths, one a frame on the host driver) launches FAST+NMS once a
+pyramid level and the patch gather exactly once, and ZNCC launches at least
+once a keyframe (phases 9-11) or a frame (phase 5). Each phase's wall is
+logged.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's `nvidia-smi` name and power limit, before that a JSON line with the
 kernels' measurements and per-path launch counts.
@@ -224,18 +232,63 @@ def check_kernels(cfg, frames, dev):
         if not (torch.equal(pk, pp) and torch.equal(flat[idx], pp)):
             raise AssertionError(f"gather_patches differs from plain at L{i}: "
                                  f"{int((pk != pp).sum())}")
-        bms, by = measure.gather_bound(blurred, yx.shape[0], P)
         gathers.append(dict(
             shape=[int(yx.shape[0]), P, P], max_abs_err=float((pk - pp).abs().max()),
             ms=ms(lambda: patch_kernel.gather_patches_cuda(blurred, yx, P, fh)),
             plain_ms=ms(lambda: patch_kernel.gather_patches_plain(blurred, yx, P, fh), reps=10),
-            library_ms=ms(lambda: flat[idx]), bound_ms=bms, bound_by=by))
+            library_ms=ms(lambda: flat[idx]),
+            **measure.gather_levels_bound([(blurred, yx, fh)], P)))
         if i == 0:
             patches0 = pk
-    results["gather_patches"] = dict(gathers[0], levels=gathers,
-                                     sum_ms=sum(g["ms"] for g in gathers),
-                                     sum_library_ms=sum(g["library_ms"] for g in gathers),
-                                     sum_bound_ms=sum(g["bound_ms"] for g in gathers))
+    # the main path's call: every level in one launch, bit-exact against
+    # its plain version as a whole and level by level, L2-warm (back to
+    # back) and L2-cold; the yardstick is one flat-index gather over the
+    # levels' images, joined outside the timed call
+    blurred_all = [b for b, _, _ in inp["gathers"]]
+    yx_all = [yx for _, yx, _ in inp["gathers"]]
+    fh_all = [fh for _, _, fh in inp["gathers"]]
+    ak = patch_kernel.gather_patches_levels_cuda(blurred_all, yx_all, P, fh_all)
+    ap = patch_kernel.gather_patches_levels_plain(blurred_all, yx_all, P, fh_all)
+    joined = torch.cat([b.view(-1) for b in blurred_all])
+    idx_all, base = [], 0
+    for blurred, yx, fh in inp["gathers"]:
+        y0, x0 = im_ops.patch_origins(yx, blurred.shape, P, fh)
+        ar = torch.arange(P, device=dev)
+        idx_all.append(base + (y0[:, None, None] + ar[None, :, None]) * blurred.shape[1]
+                       + x0[:, None, None] + ar[None, None, :])
+        base += blurred.numel()
+    idx_all = torch.cat(idx_all)
+    sync()
+    start = 0
+    for i, g in enumerate(gathers):
+        rows = slice(start, start + g["shape"][0])
+        if not torch.equal(ak[rows], ap[rows]):
+            raise AssertionError(f"gather_patches_levels differs from plain at L{i}")
+        start = rows.stop
+    if not (torch.equal(ak, ap) and torch.equal(joined[idx_all], ap)):
+        raise AssertionError("gather_patches_levels differs from plain over all levels")
+    whole = measure.gather_levels_bound(inp["gathers"], P)
+
+    def one():
+        return patch_kernel.gather_patches_levels_cuda(blurred_all, yx_all, P, fh_all)
+
+    # the row's keys of one level (L0) and its per-level sums keep their
+    # meaning; the all-levels launch has keys of its own
+    results["gather_patches"] = dict(
+        gathers[0], levels=gathers, sum_ms=sum(g["ms"] for g in gathers),
+        sum_library_ms=sum(g["library_ms"] for g in gathers),
+        sum_bound_ms=sum(g["bound_ms"] for g in gathers),
+        all_levels_shape=[int(ak.shape[0]), P, P],
+        all_levels_max_abs_err=float((ak - ap).abs().max()),
+        all_levels_ms=ms(one), all_levels_ms_l2_cold=measure.device_ms_cold(one),
+        all_levels_plain_ms=ms(lambda: patch_kernel.gather_patches_levels_plain(
+            blurred_all, yx_all, P, fh_all), reps=10),
+        all_levels_library_ms=ms(lambda: joined[idx_all]),
+        **{"all_levels_" + k: v for k, v in whole.items()})
+    # the first chunk through batch_extract (one gather launch) equals its
+    # composition through the per-level describe, bit for bit, at B=8 (the
+    # chunk path) and B=1 (the host driver)
+    results["gather_patches"]["extract_bit_equal"] = check_extract_composition(cfg, frames, dev)
     # BRIEF bits, upright and steered, from the kernel's level-0 patches on
     # the card vs the same patches on the CPU
     flips = {}
@@ -247,9 +300,17 @@ def check_kernels(cfg, frames, dev):
     results["gather_patches"].update(
         brief_bit_flips=flips[False], steered_bit_flips=flips[True],
         brief_bits=int(signs_cpu.numel()))
+    a = results["gather_patches"]
     log("gather_patches: bit-exact at " + ", ".join(
         f"L{i} {g['shape'][0]} {g['ms']:.4f} ms" for i, g in enumerate(gathers))
-        + f"; BRIEF bit flips card vs CPU: upright {flips[False]}, steered "
+        + f" (sum {a['sum_ms']:.4f} ms); all levels in one launch, bit-exact per level and "
+        f"whole: {a['all_levels_shape'][0]} patches in {a['all_levels_ms']:.4f} ms L2-warm, "
+        f"{a['all_levels_ms_l2_cold']:.4f} ms L2-cold, bound {a['all_levels_bound_ms']:.4f} ms "
+        f"({a['all_levels_covered_pixels']} of {a['all_levels_image_pixels']} pixels under the "
+        f"windows; {a['all_levels_whole_image_bound_ms']:.4f} ms reading whole images), plain "
+        f"{a['all_levels_plain_ms']:.4f} ms, joined[idx] {a['all_levels_library_ms']:.4f} ms; "
+        f"batch_extract bit-equal to the per-level composition at B={CHUNK} and B=1; "
+        f"BRIEF bit flips card vs CPU: upright {flips[False]}, steered "
         f"{flips[True]} of {signs_cpu.numel()}")
 
     # K3: N=2,048 on frame 0's pair and the stacked N=16,384, atol 2e-5,
@@ -285,6 +346,40 @@ def check_kernels(cfg, frames, dev):
         + f" (atol {ZNCC_ATOL}); valid/reliable equal")
     sync()
     return results
+
+
+def check_extract_composition(cfg, frames, dev):
+    """batch_extract's FrameFeatures on the first chunk (B=CHUNK) and on
+    its first frame (B=1), each bit-equal to the same extraction composed
+    through the per-level ExtractStages.describe, and one patch-gather
+    launch a batch_extract call."""
+    from stereo_visual_slam_tpu_torch.models import frontend
+    from stereo_visual_slam_tpu_torch.ops import kernels
+    from stereo_visual_slam_tpu_torch.profiling import production
+
+    images = production.pack(cfg, frames[:CHUNK], dev)
+    batch_extract = frontend.make_batch_extractor(cfg, dev, with_depth=True)
+    st = batch_extract.stages
+    for imgs in (images, images[:1]):
+        kernels.reset_launch_counts()
+        got = batch_extract(imgs)
+        sync()
+        launched = kernels.launch_counts()
+        left = imgs[:, 0].float()
+        per_level = []
+        for i in range(len(st.levels)):
+            stacked, scores, yx = st.detect(i, st.level_image(left, i))
+            per_level.append((scores, yx, *st.describe(i, st.blur(stacked), yx)))
+        ref = st.merge(imgs, per_level, True)
+        sync()
+        differ = [k for k, a, b in zip(frontend.FrameFeatures._fields, got, ref)
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"batch_extract at B={imgs.shape[0]} differs from the per-level "
+                                 f"composition in {differ}")
+        if launched["gather_patches"] != 1 or launched["fast_nms"] != len(st.levels):
+            raise AssertionError(f"batch_extract at B={imgs.shape[0]} launched {launched}")
+    return True
 
 
 def accuracy(estimates, world, label):
@@ -348,7 +443,7 @@ def run_slice(frames, world, cfg):
         raise AssertionError("BA never ran")
     if ate > DEFAULT_GATES["ate"] or t_err > DEFAULT_GATES["trans"]:
         raise AssertionError("the slice misses the accuracy gates")
-    check_launches(launches, "slice")
+    check_extracts(launches, FRAMES // CHUNK, cfg.frontend.n_levels, "slice")
     return launches, slam, wall
 
 
@@ -393,7 +488,7 @@ def run_host(frames, world, cfg):
         raise AssertionError("host: BA never ran")
     if ate > DEFAULT_GATES["ate"] or t_err > DEFAULT_GATES["trans"]:
         raise AssertionError("host: misses the accuracy gates")
-    check_launches(launches, "host")
+    check_extracts(launches, FRAMES, cfg.frontend.n_levels, "host")
     if launches["zncc_sweep"] < n:
         raise AssertionError(f"host: ZNCC launched {launches['zncc_sweep']} times for {n} frames")
     return launches, dict(frames_per_s=n / wall, syncs_per_frame=vo.syncs / n)
@@ -443,7 +538,7 @@ def run_reference(frames, world, cfg):
         raise AssertionError(f"reference config: tracked {tracked} of {n} frames")
     if n_ba < 1:
         raise AssertionError("reference config: BA never ran")
-    check_launches(launches, "reference config")
+    check_extracts(launches, REF_FRAMES // CHUNK, cfg_ref.frontend.n_levels, "reference config")
     return launches
 
 
@@ -530,7 +625,7 @@ def run_mesh_one_rank(frames, cfg, ref, dev):
         raise AssertionError("phase 7(a): the one-rank mesh is not bit-equal to no mesh")
     if n_ba < 1:
         raise AssertionError("phase 7(a): BA never ran")
-    check_launches(launches, "mesh (a)")
+    check_extracts(launches, FRAMES // CHUNK, cfg.frontend.n_levels, "mesh (a)")
     return launches, dict(wall_s=wall, schedules=schedules)
 
 
@@ -646,7 +741,8 @@ def run_mesh_two_ranks(frames, world, cfg, ref, dev):
             raise AssertionError(f"phase 7(b) rank {r}: misses the accuracy gates")
         if res["n_compared"] < 0.9 * FRAMES or res["max_gap_m"] > MESH_POSE_BOUND_M:
             raise AssertionError(f"phase 7(b) rank {r}: {res['max_gap_m']} m from phase 4")
-        check_launches(res["launches"], f"mesh (b) rank {r}")
+        check_extracts(res["launches"], FRAMES // CHUNK, cfg.frontend.n_levels,
+                       f"mesh (b) rank {r}")
     if unequal:
         raise AssertionError(f"phase 7(b): the ranks' carries differ in {unequal}")
     return results
@@ -959,7 +1055,7 @@ def run_dataset(frames, world, cfg, ref, ref_wall):
             if diff:
                 raise AssertionError(f"phase 8({label}): the file-fed run differs from phase 4 "
                                      f"in {diff}")
-            check_launches(launches, f"dataset ({label})")
+            check_extracts(launches, FRAMES // CHUNK, cfg.frontend.n_levels, f"dataset ({label})")
             runs[label] = dict(pose=pose, wall=wall, launches=launches)
         pose_c = runs["c"]["pose"]
 
@@ -986,7 +1082,7 @@ def run_dataset(frames, world, cfg, ref, ref_wall):
             raise AssertionError(f"phase 8(d): exit {rc}, pose file equal {same_poses}")
         if "ATE RMSE" not in printed or "KITTI trans" not in printed:
             raise AssertionError("phase 8(d): the CLI printed no ATE and KITTI line")
-        check_launches(cli_launches, "dataset (d)")
+        check_extracts(cli_launches, FRAMES // CHUNK, cfg.frontend.n_levels, "dataset (d)")
 
         # (e) unequal channels against the numpy model of the conversion
         rgb_model = check_rgb_model(root)
@@ -999,15 +1095,25 @@ def run_dataset(frames, world, cfg, ref, ref_wall):
                 cli_launches=cli_launches)
 
 
-def check_per_frame(launches, frames, keyframes, label):
-    """FAST+NMS and the patch gather at least once per frame, ZNCC at least
-    once per keyframe."""
+def check_extracts(launches, extracts, n_levels, label):
+    """`extracts` batch_extract calls of an `n_levels` pyramid: every kernel
+    launched, FAST+NMS once a level a call and the patch gather exactly
+    once a call (its one launch for every level)."""
     check_launches(launches, label)
-    short = [k for k, need in (("fast_nms", frames), ("gather_patches", frames),
-                               ("zncc_sweep", keyframes)) if launches[k] < need]
-    if short:
-        raise AssertionError(f"{label}: {short} launched fewer times than needed for {frames} "
-                             f"frames and {keyframes} keyframes: {launches}")
+    want = {"fast_nms": n_levels * extracts, "gather_patches": extracts}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: {extracts} batch_extract calls launch {want}, this run "
+                             f"launched {got}")
+
+
+def check_per_frame(launches, frames, keyframes, n_levels, label, per_call=CHUNK):
+    """ZNCC at least once per keyframe, and one batch_extract call a chunk
+    of `per_call` frames (the last one may be short): `check_extracts`."""
+    check_extracts(launches, -(-frames // per_call), n_levels, label)
+    if launches["zncc_sweep"] < keyframes:
+        raise AssertionError(f"{label}: ZNCC launched fewer times than the {keyframes} "
+                             f"keyframes: {launches}")
 
 
 def run_bench_phase(cfg, renderer):
@@ -1029,7 +1135,8 @@ def run_bench_phase(cfg, renderer):
     for name, p in out["profiles"].items():
         if p["lost"] or not p["gate"]:
             raise AssertionError(f"phase 9: the {name} profile: lost {p['lost']}, {p['verdict']}")
-        check_per_frame(p["launches"], p["frames"], p["keyframes"], f"bench {name}")
+        check_per_frame(p["launches"], p["frames"], p["keyframes"], cfg.frontend.n_levels,
+                        f"bench {name}")
         launches[f"bench_{name}"] = p["launches"]
     if set(launches) != {"bench_default", "bench_hard", "bench_highway"}:
         raise AssertionError(f"phase 9: profiles run: {sorted(launches)}")
@@ -1072,7 +1179,7 @@ def run_entry_points(cfg):
     if not (torch.isfinite(state.T_c_w).all()
             and state.yx.shape == (cfg.frontend.max_raw_keypoints, 2)):
         raise AssertionError("phase 10: entry()'s step gave a bad state")
-    check_per_frame(launches["graft_entry"], 1, 1, "graft_entry")
+    check_per_frame(launches["graft_entry"], 1, 1, cfg.frontend.n_levels, "graft_entry", per_call=1)
     log(f"entry: step ran, {int(info.n_matches)} matches, {int(info.n_inliers)} inliers; "
         f"launches {launches['graft_entry']}")
 
@@ -1084,7 +1191,8 @@ def run_entry_points(cfg):
     launches["dryrun_nccl_1"] = kernels.launch_counts()
     if dry["backend"] != "nccl" or dry["ba_runs"] < 1:
         raise AssertionError(f"phase 10: dryrun on {dry['backend']}, {dry['ba_runs']} BA runs")
-    check_per_frame(launches["dryrun_nccl_1"], dry["frames"], dry["keyframes"], "dryrun_nccl_1")
+    check_per_frame(launches["dryrun_nccl_1"], dry["frames"], dry["keyframes"],
+                    cfg.frontend.n_levels, "dryrun_nccl_1")
     log(f"dryrun_multichip(1): NCCL, {dry['frames']} frames, {dry['keyframes']} keyframes, "
         f"{dry['ba_runs']} BA runs on the mesh in {time.perf_counter() - t0:.1f} s; launches "
         f"{launches['dryrun_nccl_1']}")
@@ -1109,7 +1217,8 @@ def run_entry_points(cfg):
     n_kf = int(tracked.split(", ")[1].split()[0])
     if not tracked.startswith(f"tracked {SYNTHETIC_FRAMES}/{SYNTHETIC_FRAMES} "):
         raise AssertionError(f"phase 10: run_synthetic: {tracked}")
-    check_per_frame(launches["run_synthetic"], SYNTHETIC_FRAMES, n_kf, "run_synthetic")
+    check_per_frame(launches["run_synthetic"], SYNTHETIC_FRAMES, n_kf, cfg.frontend.n_levels,
+                    "run_synthetic", per_call=1)
     return launches, dict(dryrun={k: v for k, v in dry.items() if k != "T_c_w"},
                           run_synthetic_wall_s=wall)
 
@@ -1137,7 +1246,7 @@ def run_short_soak(cfg, renderer):
         f"launches {launches}")
     if not out["ok"] or out["n_evictions"] < 1 or len(slam.stats) != SOAK_FRAMES:
         raise AssertionError(f"phase 11: soak ok {out['ok']}, {out['n_evictions']} evictions")
-    check_per_frame(launches, SOAK_FRAMES, out["n_keyframes"], "soak")
+    check_per_frame(launches, SOAK_FRAMES, out["n_keyframes"], cfg.frontend.n_levels, "soak")
     return launches, out
 
 

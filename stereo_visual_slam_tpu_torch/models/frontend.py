@@ -3,8 +3,10 @@
 
 Per pyramid level the B frames are stacked vertically into one (B*H_i, W_i)
 image for FAST+NMS, box blur and the patch gather (clamped per frame), as
-in the reference; the pooled top-k, BRIEF and ANMS run batched. Depth comes
-in one of two ways, as in the reference:
+in the reference; the pooled top-k, BRIEF and ANMS run batched, and one
+patch gather serves every level (`ExtractStages.describe_levels`: one
+launch of the kernel a call, where the reference calls it per level).
+Depth comes in one of two ways, as in the reference:
   * eagerly (`with_depth=True`): one ZNCC sweep over all B*N keypoints on
     the stacked full-resolution pair, the `frontend.lazy_depth=False`
     chunk path and the single-frame extractor of the host driver;
@@ -115,10 +117,11 @@ class ExtractStages:
     stage at a time (profiling/production.py).
 
     Per level i: `level_image` (the pyramid), `detect` (`score_map`:
-    FAST+NMS and the border; `topk`: the pooled top-k), `blur`, `describe`
-    (patch gather + BRIEF); then `merge`: `table` concatenates the levels
-    and runs `anms`, `depth`, eagerly, the stereo search, and `features`
-    assembles the FrameFeatures."""
+    FAST+NMS and the border; `topk`: the pooled top-k), `blur`; then
+    `describe_levels` (one patch gather over every level, BRIEF per level;
+    `describe` is one level's); then `merge`: `table` concatenates the
+    levels and runs `anms`, `depth`, eagerly, the stereo search, and
+    `features` assembles the FrameFeatures."""
 
     def __init__(self, config: Config, device):
         fe = config.frontend
@@ -183,6 +186,22 @@ class ExtractStages:
     def blur(self, stacked: torch.Tensor) -> torch.Tensor:
         return im_ops.box_blur(stacked, self.config.frontend.blur_box)
 
+    def stacked_yx(self, i: int, yx: torch.Tensor) -> torch.Tensor:
+        """Level i's keypoints yx (B, n, 2) as (B*n, 2) int32 rows of the
+        (B*H_i, W_i) stack: frame b's rows offset by b*H_i."""
+        B, n = yx.shape[:2]
+        H_i = self.levels[i][2][0]
+        row_off = (torch.arange(B, device=self.device, dtype=torch.int32) * H_i)[:, None]
+        yx_st = torch.stack([yx[..., 0] + row_off, yx[..., 1]], dim=-1)
+        return yx_st.reshape(B * n, 2).contiguous()
+
+    def brief(self, patches: torch.Tensor, B: int, n: int):
+        """BRIEF of (B*n, P, P) patches: (packed (B, n, words), signs (B, n,
+        bits))."""
+        steer = self.config.frontend.steer_descriptor
+        packed, signs = orb_ops.describe_patches(patches, self.M, steer)
+        return packed.reshape(B, n, -1), signs.reshape(B, n, -1)
+
     def describe(self, i: int, blurred: torch.Tensor, yx: torch.Tensor):
         """The patch gather on level i's blurred stack at keypoints yx
         (B, n, 2), clamped per frame, then BRIEF. Returns (packed (B, n,
@@ -190,15 +209,30 @@ class ExtractStages:
         fe = self.config.frontend
         B, n = yx.shape[:2]
         H_i = self.levels[i][2][0]
-        row_off = (torch.arange(B, device=self.device, dtype=torch.int32) * H_i)[:, None]
-        yx_st = torch.stack([yx[..., 0] + row_off, yx[..., 1]], dim=-1)
-        yx_st = yx_st.reshape(B * n, 2).contiguous()
+        yx_st = self.stacked_yx(i, yx)
         if fe.pallas_patches:
             patches = patch_kernel.gather_patches(blurred, yx_st, fe.patch_size, H_i)
         else:
             patches = patch_kernel.gather_patches_plain(blurred, yx_st, fe.patch_size, H_i)
-        packed, signs = orb_ops.describe_patches(patches, self.M, fe.steer_descriptor)
-        return packed.reshape(B, n, -1), signs.reshape(B, n, -1)
+        return self.brief(patches, B, n)
+
+    def describe_levels(self, blurred_list, yx_list):
+        """`describe` of every level, with one patch gather for all of them
+        (one launch of the kernel): then BRIEF per level on that level's
+        slice of the patches, at the per-level shapes, so the bits equal
+        `describe`'s. Returns [(packed, signs)] in level order."""
+        fe = self.config.frontend
+        yx_st = [self.stacked_yx(i, yx) for i, yx in enumerate(yx_list)]
+        frame_hs = [H_i for _, _, (H_i, _), _ in self.levels[:len(yx_list)]]
+        gather = (patch_kernel.gather_patches_levels if fe.pallas_patches
+                  else patch_kernel.gather_patches_levels_plain)
+        patches = gather(blurred_list, yx_st, fe.patch_size, frame_hs)
+        out, start = [], 0
+        for yx, rows in zip(yx_list, yx_st):
+            B, n = yx.shape[:2]
+            out.append(self.brief(patches[start:start + rows.shape[0]], B, n))
+            start += rows.shape[0]
+        return out
 
     def anms(self, yx_int: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
         fe = self.config.frontend
@@ -273,11 +307,13 @@ def make_batch_extractor(config: Config, device, with_depth: bool = True):
 
     def batch_extract(images: torch.Tensor) -> FrameFeatures:
         left = images[:, 0].float()                       # (B, H, W)
-        per_level = []
+        blurred, tops = [], []
         for i in range(len(st.levels)):
             stacked, top_scores, yx_i = st.detect(i, st.level_image(left, i))
-            packed_i, signs_i = st.describe(i, st.blur(stacked), yx_i)
-            per_level.append((top_scores, yx_i, packed_i, signs_i))
+            blurred.append(st.blur(stacked))
+            tops.append((top_scores, yx_i))
+        described = st.describe_levels(blurred, [yx for _, yx in tops])
+        per_level = [(s, yx, p, g) for (s, yx), (p, g) in zip(tops, described)]
         return st.merge(images, per_level, with_depth)
 
     batch_extract.stages = st   # the profilers time these very calls

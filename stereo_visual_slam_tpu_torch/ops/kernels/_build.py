@@ -35,11 +35,15 @@ NVCC_FLAGS = [
 ]
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_c_i64s, _c_ints = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int)
 # C entry points and their argument types; each returns cudaGetLastError()
 SIGNATURES = {
     "svs_fast_nms": [_c_ptr, _c_ptr, _c_int, _c_int, _c_float, _c_ptr],
     "svs_gather_patches": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int,
                            _c_int, _c_int, _c_ptr],
+    # host arrays: the levels' image and keypoint pointers, their dims
+    "svs_gather_patches_levels": [_c_i64s, _c_i64s, _c_ints, _c_int, _c_ptr, _c_int,
+                                  _c_ptr],
     "svs_zncc_sweep": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
                        _c_int, _c_int, _c_int, _c_ptr],
 }

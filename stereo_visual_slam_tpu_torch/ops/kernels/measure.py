@@ -7,29 +7,39 @@ of them beside the current one, in one process on one card.
 Inputs: production Config(), the first 8 frames (one chunk) of the default
 synthetic world. Shapes: FAST+NMS on each pyramid level's (8*H_i, W_i)
 stack; the patch gather at each level's 8 x budget_i keypoints on the
-blurred stack; the ZNCC sweep at N=2,048 on frame 0's pair (the keyframe
-branch and the host driver) and N=16,384 on the stacked pair with per-frame
-row offsets (the eager chunk path).
+blurred stack, one level a launch and all levels in one (the main path's
+call); the ZNCC sweep at N=2,048 on frame 0's pair (the keyframe branch
+and the host driver) and N=16,384 on the stacked pair with per-frame row
+offsets (the eager chunk path).
 
 `--parent DIR` names a directory of earlier kernel sources with the same C
 entry points (e.g. a copy of an earlier commit's csrc/ under archive/),
-built into a library of its own. Each round times, per shape, the parent
-and the current kernel in the order parent, current, current, parent; each
-sample is the device time of one launch, averaged over back-to-back
-launches queued behind a sleep kernel so that no host gap enters it. The
-current kernels are also checked against their plain versions and the
-parent's (FAST+NMS and the gather bit-exact, ZNCC atol 2e-5).
+built into a library of its own. Each round times, per shape, every
+variant in turns, forward then backward (parent, current, current,
+parent); each sample is the device time of one launch, averaged over
+back-to-back launches queued behind a sleep kernel so that no host gap
+enters it. For all levels, the parent's variant is its 8 per-level
+launches back to back where it has no all-levels entry. The
+gather rows are also timed L2-cold (`device_ms_cold`: each launch alone
+between two events, after a 128 MB buffer is written and read back):
+back to back, a level's image and patches can stay in the 50 MB L2, and
+a copy can then beat its HBM bound. The current
+kernels are also checked against their plain versions and the parent's
+(FAST+NMS and the gather bit-exact, ZNCC atol 2e-5).
 
 The module also holds what `chip_smoke.py` needs for the same shapes: the
 inputs and each kernel's bound (the least time the card could take), from
 each kernel's work (`fast_work`, `gather_work`, `zncc_work`: bytes and
 operations), which the cost model (utils/roofline.py) counts for a call of
-the kernel's wrapper too.
+the kernel's wrapper too. The gather's bound counts only the image pixels
+under its windows (`covered_pixels`); its cost-model unit counts whole
+level images.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -93,8 +103,35 @@ def fast_work(img: torch.Tensor, threshold: float) -> tuple:
     return 8.0 * n, float(ops)
 
 
-def gather_work(img: torch.Tensor, n: int, patch: int) -> tuple:
-    return 4.0 * img.numel() + 8.0 * n + 4.0 * n * patch * patch, 0.0
+def gather_work(img: torch.Tensor, n: int, patch: int, covered=None) -> tuple:
+    """The gather's work: its keypoints and patches, and the image's
+    pixels: `covered` of them (the pixels under the windows, what the
+    kernel must read: `covered_pixels`), or, when None, every pixel (the
+    cost model's unit, as counted since it began)."""
+    pixels = img.numel() if covered is None else covered
+    return 4.0 * pixels + 8.0 * n + 4.0 * n * patch * patch, 0.0
+
+
+def covered_pixels(img: torch.Tensor, yx: torch.Tensor, patch: int, frame_h=None) -> int:
+    """The pixels of img under at least one keypoint's window (the union
+    of the windows, as the gather clamps them): the part of the image the
+    gather reads."""
+    from stereo_visual_slam_tpu_torch.ops import image as im_ops
+
+    mask = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
+    if yx.shape[0]:
+        y0, x0 = im_ops.patch_origins(yx, img.shape, patch, frame_h)
+        ar = torch.arange(patch, device=img.device)
+        mask[y0[:, None, None] + ar[None, :, None], x0[:, None, None] + ar[None, None, :]] = True
+    return int(mask.sum())
+
+
+def gather_levels_work(imgs, ns, patch: int, covered=None) -> tuple:
+    """The all-levels gather's work: the levels' gather_work summed
+    (`covered`: each level's covered pixels, or None for whole images)."""
+    covered = [None] * len(imgs) if covered is None else covered
+    works = [gather_work(img, n, patch, c) for img, n, c in zip(imgs, ns, covered)]
+    return sum(w[0] for w in works), sum(w[1] for w in works)
 
 
 def zncc_work(img: torch.Tensor, n: int, patch: int, D: int) -> tuple:
@@ -107,6 +144,19 @@ def fast_bound(img: torch.Tensor, threshold: float) -> tuple:
 
 def gather_bound(img: torch.Tensor, n: int, patch: int) -> tuple:
     return bound(*gather_work(img, n, patch))
+
+
+def gather_levels_bound(gathers, patch: int) -> dict:
+    """The bound of the gather over `gathers` ([(image, yx, frame_h)]),
+    from the pixels its windows cover, beside the bound that reads whole
+    images: {bound_ms, bound_by, covered_pixels, image_pixels,
+    whole_image_bound_ms}."""
+    imgs, ns = [img for img, _, _ in gathers], [yx.shape[0] for _, yx, _ in gathers]
+    covered = [covered_pixels(img, yx, patch, fh) for img, yx, fh in gathers]
+    ms, by = bound(*gather_levels_work(imgs, ns, patch, covered))
+    return dict(bound_ms=ms, bound_by=by, covered_pixels=sum(covered),
+                image_pixels=sum(img.numel() for img in imgs),
+                whole_image_bound_ms=bound(*gather_levels_work(imgs, ns, patch))[0])
 
 
 def zncc_bound(img: torch.Tensor, n: int, patch: int, D: int) -> tuple:
@@ -195,6 +245,34 @@ def device_ms(fn, reps: int = 50) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms_cold(fn, reps: int = 20, scrub_mb: int = 128) -> float:
+    """Device time of one fn() call with nothing of its inputs in L2: each
+    of reps calls alone between two CUDA events, after a scrub_mb buffer
+    is written and read back (evicting the 50 MB L2, dirty lines
+    included), all queued behind a sleep kernel; the mean of the calls.
+    Lines fn writes can still leave L2 after its end event."""
+    scrub = torch.empty(scrub_mb << 18, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    scrub.fill_(1.0)
+    scrub.sum()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(int(2e9 * (2.0 * reps * host_s + 1e-4)))
+    for a, b in events:
+        scrub.fill_(1.0)
+        scrub.sum()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
 def raw_calls(lib, cfg, dev):
     """Launchers of lib's three C entry points (None for one that lib does
     not define), outputs preallocated, for timing two libraries with the
@@ -212,9 +290,10 @@ def raw_calls(lib, cfg, dev):
             return out
         return go
 
-    def gather(img, yx, frame_h):
+    def gather(img, yx, frame_h, out=None):
         P = fe.patch_size
-        out = torch.empty((yx.shape[0], P, P), dtype=torch.float32, device=dev)
+        if out is None:
+            out = torch.empty((yx.shape[0], P, P), dtype=torch.float32, device=dev)
 
         def go():
             _build.check("gather_patches", lib.svs_gather_patches(
@@ -238,6 +317,40 @@ def raw_calls(lib, cfg, dev):
         (fast, "svs_fast_nms"), (gather, "svs_gather_patches"), (zncc, "svs_zncc_sweep"))]
 
 
+def gather_levels_call(lib, cfg, dev, gathers):
+    """Launcher of the gather over every level of `gathers` ([(blurred,
+    yx, frame_h)]) into one (sum N, P, P) output: lib's all-levels entry,
+    or, where lib lacks it (an earlier version), its per-level launches
+    back to back."""
+    P = cfg.frontend.patch_size
+    out = torch.empty((sum(yx.shape[0] for _, yx, _ in gathers), P, P),
+                      dtype=torch.float32, device=dev)
+    if not hasattr(lib, "svs_gather_patches_levels"):
+        gather = raw_calls(lib, cfg, dev)[1]
+        launches, start = [], 0
+        for blurred, yx, fh in gathers:
+            launches.append(gather(blurred, yx, fh, out[start:start + yx.shape[0]]))
+            start += yx.shape[0]
+
+        def each():
+            for go in launches:
+                go()
+            return out
+        return each
+    n = len(gathers)
+    imgs = (ctypes.c_int64 * n)(*[b.data_ptr() for b, _, _ in gathers])
+    yxs = (ctypes.c_int64 * n)(*[yx.data_ptr() for _, yx, _ in gathers])
+    dims = (ctypes.c_int * (4 * n))(*[v for b, yx, fh in gathers
+                                      for v in (*b.shape, fh, yx.shape[0])])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def go():
+        _build.check("gather_patches_levels", lib.svs_gather_patches_levels(
+            imgs, yxs, dims, n, out.data_ptr(), P, stream))
+        return out
+    return go
+
+
 def _check(name, shape, new, parent, plain, exact):
     for label, other in (("parent", parent), ("plain", plain)):
         if other is None:
@@ -257,45 +370,69 @@ def measure(parent_dir, rounds: int) -> dict:
     dev = torch.device("cuda")
     cfg, frames = production_frames()
     fe = cfg.frontend
+    P = fe.patch_size
     inp = kernel_inputs(cfg, frames, dev)
     libs = {"new": _build.library()}
     if parent_dir is not None:
         libs["parent"] = _build.library(Path(parent_dir))
     calls = {k: raw_calls(lib, cfg, dev) for k, lib in libs.items()}
 
-    cases = []   # (kernel, shape label, {variant: launcher}, bound, exact, plain)
+    def gather_variants(gathers):
+        """Each library's gather over `gathers`: for one level its C entry
+        of one level, for several its all-levels launch."""
+        if len(gathers) == 1:
+            return {k: c[1](*gathers[0]) for k, c in calls.items() if c[1]}
+        return {k: gather_levels_call(lib, cfg, dev, gathers) for k, lib in libs.items()}
+
+    # (kernel, shape label, {variant: launcher}, {bound_ms, bound_by, ...}, exact, plain)
+    cases = []
     for i, img in enumerate(inp["levels"]):
         cases.append(("fast_nms", f"L{i} {tuple(img.shape)}",
                       {k: c[0](img) for k, c in calls.items() if c[0]},
-                      fast_bound(img, fe.fast_threshold), True,
+                      dict(zip(("bound_ms", "bound_by"), fast_bound(img, fe.fast_threshold))),
+                      True,
                       lambda img=img: fast_kernel.fast_nms_plain(img, fe.fast_threshold)))
-    for i, (blurred, yx, fh) in enumerate(inp["gathers"]):
-        cases.append(("gather_patches", f"L{i} {yx.shape[0]} x {fe.patch_size}^2",
-                      {k: c[1](blurred, yx, fh) for k, c in calls.items() if c[1]},
-                      gather_bound(blurred, yx.shape[0], fe.patch_size), True,
-                      lambda b=blurred, y=yx, h=fh: patch_kernel.gather_patches_plain(b, y, fe.patch_size, h)))
+    gathers = inp["gathers"]
+    for i, (blurred, yx, fh) in enumerate(gathers):
+        cases.append(("gather_patches", f"L{i} {yx.shape[0]} x {P}^2",
+                      gather_variants([(blurred, yx, fh)]),
+                      gather_levels_bound([(blurred, yx, fh)], P), True,
+                      lambda b=blurred, y=yx, h=fh: patch_kernel.gather_patches_plain(b, y, P, h)))
+    n_all = sum(yx.shape[0] for _, yx, _ in gathers)
+    cases.append(("gather_patches", f"all {len(gathers)} levels {n_all} x {P}^2",
+                  gather_variants(gathers), gather_levels_bound(gathers, P), True,
+                  lambda: patch_kernel.gather_patches_levels_plain(
+                      [b for b, _, _ in gathers], [yx for _, yx, _ in gathers], P,
+                      [fh for _, _, fh in gathers])))
     for label, (l, r, yx) in inp["zncc"].items():
         cases.append(("zncc_sweep", f"{label} N={yx.shape[0]} on {tuple(l.shape)}",
                       {k: c[2](l, r, yx) for k, c in calls.items() if c[2]},
-                      zncc_bound(l, yx.shape[0], fe.stereo_patch, fe.max_disparity), False,
+                      dict(zip(("bound_ms", "bound_by"),
+                               zncc_bound(l, yx.shape[0], fe.stereo_patch, fe.max_disparity))),
+                      False,
                       lambda l=l, r=r, y=yx: stereo_kernel.zncc_sweep_plain(
                           l, r, y, patch=fe.stereo_patch, max_disparity=fe.max_disparity)))
 
     for name, shape, fns, _, exact, plain in cases:
-        new = fns["new"]().clone()
+        ref = plain()
         par = fns["parent"]().clone() if "parent" in fns else None
-        _check(name, shape, new, par, plain(), exact)
+        for k, fn in fns.items():
+            if k != "parent":
+                _check(name, f"{shape} ({k})", fn().clone(), par, ref, exact)
     torch.cuda.synchronize()
 
-    samples = [{k: [] for k in fns} for _, _, fns, _, _, _ in cases]
+    samples = [{} for _ in cases]
     for _ in range(rounds):
-        for c, (_, _, fns, _, _, _) in enumerate(cases):
-            for k in ("parent", "new", "new", "parent"):
-                if k in fns:
-                    samples[c][k].append(device_ms(fns[k]))
+        for c, (name, _, fns, _, _, _) in enumerate(cases):
+            order = list(fns) + list(fns)[::-1]
+            timers = [("", device_ms)] + ([("_cold", device_ms_cold)]
+                                          if name == "gather_patches" else [])
+            for suffix, timer in timers:
+                for k in order:
+                    samples[c].setdefault(k + suffix, []).append(timer(fns[k]))
     rows = []
-    for c, (name, shape, _, (bms, by), _, _) in enumerate(cases):
-        row = dict(kernel=name, shape=shape, bound_ms=bms, bound_by=by,
+    for c, (name, shape, _, bounds, _, _) in enumerate(cases):
+        row = dict(kernel=name, shape=shape, **bounds,
                    **{k: _summary(v) for k, v in samples[c].items()})
         if "parent" in row:
             row["new_over_parent"] = row["new"]["median_ms"] / row["parent"]["median_ms"]
@@ -314,12 +451,13 @@ def main(argv=None) -> int:
         return 1
     res = measure(args.parent, args.rounds)
     for row in res["rows"]:
-        par = row.get("parent", {}).get("median_ms")
-        print(f"{row['kernel']:15s} {row['shape']:42s} new {row['new']['median_ms']:.6f} "
-              f"[{row['new']['min_ms']:.6f}-{row['new']['max_ms']:.6f}] ms"
-              + (f"  parent {par:.6f} [{row['parent']['min_ms']:.6f}-"
-                 f"{row['parent']['max_ms']:.6f}] ms" if par is not None else "")
-              + f"  bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+        times = "  ".join(f"{k} {v['median_ms']:.6f} [{v['min_ms']:.6f}-{v['max_ms']:.6f}]"
+                          for k, v in row.items() if isinstance(v, dict))
+        covered = (f"; {row['covered_pixels']} of {row['image_pixels']} pixels under the "
+                   f"windows, whole-image bound {row['whole_image_bound_ms']:.6f} ms"
+                   if "covered_pixels" in row else "")
+        print(f"{row['kernel']:15s} {row['shape']:32s} {times} ms  bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}{covered})")
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "measure_kernels.json"), "w") as f:
         json.dump(res, f, indent=1)

@@ -17,8 +17,9 @@ busy time, launches and syncs per iteration):
                     JAX tool's random window
   the extractor's stages, the very calls batch_extract makes
   (frontend.ExtractStages): the pyramid resize, detect (FAST+NMS kernel,
-  border, pooled top-k), box blur, describe (patch gather kernel + BRIEF)
-  at the JAX tool's random keypoints, ANMS at its random (B, N) keypoints,
+  border, pooled top-k), box blur, describe (`describe_levels`: one patch
+  gather kernel launch for every level + BRIEF per level) at the JAX
+  tool's random keypoints, ANMS at its random (B, N) keypoints,
   and the stereo search (ZNCC kernel) over the stacked B*N keypoints.
 
 The random inputs come from one np.random.default_rng(0) in the JAX tool's
@@ -99,9 +100,9 @@ def feats_scan(step, carry, feats, images, frame_ids, noise):
 def extract_by_stages(st: ExtractStages, images: torch.Tensor, with_depth: bool = False,
                       scope: Callable = lambda stage: contextlib.nullcontext()):
     """batch_extract composed from the stage rows' calls, stage by stage:
-    the pyramid, the score maps and the pooled top-k at every level, blur
-    and describe at every level, the levels' table (which runs ANMS), the
-    depth. Its FrameFeatures equal batch_extract's. Each stage's calls run
+    the pyramid, the score maps and the pooled top-k at every level, the
+    blur at every level and one `describe_levels` for all of them, the
+    levels' table (which runs ANMS), the depth. Its FrameFeatures equal batch_extract's. Each stage's calls run
     inside `scope(stage)`, stage one of STAGES ("blur" inside "describe")."""
     n = len(st.levels)
     with scope("pyramid"):
@@ -112,11 +113,9 @@ def extract_by_stages(st: ExtractStages, images: torch.Tensor, with_depth: bool 
     with scope("topk"):
         tops = [st.topk(i, score) for i, (_, score) in enumerate(scored)]
     with scope("describe"):
-        described = []
-        for i, (stacked, _) in enumerate(scored):
-            with scope("blur"):
-                blurred = st.blur(stacked)
-            described.append(st.describe(i, blurred, tops[i][1]))
+        with scope("blur"):
+            blurred = [st.blur(stacked) for stacked, _ in scored]
+        described = st.describe_levels(blurred, [yx for _, yx in tops])
     with scope("anms"):
         table = st.table([(s, yx, p, g) for (s, yx), (p, g) in zip(tops, described)])
     with scope("stereo"):
@@ -195,7 +194,7 @@ def phases(cfg, device, images: Optional[torch.Tensor] = None):
         (lambda: [st.level_image(left, i) for i in range(1, n)], B),
         (lambda: [st.detect(i, pyramid[i]) for i in range(n)], B),
         (lambda: [st.blur(s) for s in stacked], B),
-        (lambda: [st.describe(i, blurred[i], yxs[i]) for i in range(n)], B),
+        (lambda: st.describe_levels(blurred, yxs), B),
         (lambda: st.anms(yxN, scN), B),
         (lambda: st.stereo(left_st, right_st, yx_st, all_valid), B),
     ]

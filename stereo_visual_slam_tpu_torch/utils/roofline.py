@@ -30,9 +30,11 @@ bit. Rules, each held against XLA's `compiled.cost_analysis()` on the CPU
 The three hand kernels (ops/kernels/{fast,patch,stereo}_kernel.py) count
 as ONE unit a call of their dispatching wrapper (`kernel_unit`), with the
 analytic work of ops/kernels/measure.py's bounds (`fast_work`,
-`gather_work`, `zncc_work`; K1's compares and differences count as FLOPs),
-whether the CUDA kernel or the plain twin runs, and none of the ops
-inside: a kernel's count is the same on the CPU and on the card.
+`gather_work`, `zncc_work`; K1's compares and differences count as FLOPs;
+the gather's unit reads its whole level images, where its bound reads
+only the pixels under its windows), whether the CUDA kernel or the plain
+twin runs, and none of the ops inside: a kernel's count is the same on
+the CPU and on the card.
 
 Where the port's count differs from the JAX tools' numbers:
   * XLA counts each scan or cond body once; the port counts every frame of

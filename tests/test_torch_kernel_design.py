@@ -178,3 +178,23 @@ def test_bounds_count_bytes_and_operations():
     assert by == "bytes"
     assert ms == pytest.approx(1e3 * (4 * 384 * 1280 + 8 * 1000 + 4 * 1000 * 33 * 33)
                                / measure.PEAK_BYTES)
+    # the all-levels gather: the levels' bytes summed, no operations
+    small = torch.zeros((320, 1024))
+    ms, by = measure.bound(*measure.gather_levels_work([img, small], [1000, 0], 33))
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (4 * 384 * 1280 + 8 * 1000 + 4 * 1000 * 33 * 33
+                                      + 4 * 320 * 1024) / measure.PEAK_BYTES)
+    # the bound reads only the pixels under the windows: two keypoints
+    # whose windows overlap by 3 columns, and one clamped into the corner
+    yx = torch.tensor([[100, 100], [100, 130], [-5, -5]], dtype=torch.int32)
+    assert measure.covered_pixels(img, yx, 33) == 33 * 63 + 33 * 33
+    ms, by = measure.bound(*measure.gather_work(img, 3, 33, covered=33 * 63 + 33 * 33))
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (4 * (33 * 63 + 33 * 33) + 8 * 3 + 4 * 3 * 33 * 33)
+                               / measure.PEAK_BYTES)
+    b = measure.gather_levels_bound([(img, yx, None), (small, yx[:0], None)], 33)
+    assert b["covered_pixels"] == 33 * 63 + 33 * 33
+    assert b["image_pixels"] == 384 * 1280 + 320 * 1024
+    assert b["bound_ms"] == pytest.approx(ms)
+    assert b["whole_image_bound_ms"] == pytest.approx(
+        measure.bound(*measure.gather_levels_work([img, small], [3, 0], 33))[0])

@@ -117,6 +117,85 @@ def test_gather_patches_bit_exact(dev, frame_h):
     assert torch.equal(out, patch_kernel.gather_patches_plain(img, yx, 33, frame_h))
 
 
+def test_gather_patches_levels_production(production):
+    """All 8 levels of one chunk in one launch (the main path's call),
+    bit-exact per level and whole; and each level alone through the
+    one-level entry point."""
+    cfg, inp = production
+    P = cfg.frontend.patch_size
+    imgs, yxs, fhs = (list(x) for x in zip(*inp["gathers"]))
+    reset_launch_counts()
+    out = patch_kernel.gather_patches_levels_cuda(imgs, yxs, P, fhs)
+    torch.cuda.synchronize()
+    assert launch_counts()["gather_patches"] == 1
+    assert torch.equal(out, patch_kernel.gather_patches_levels_plain(imgs, yxs, P, fhs))
+    start = 0
+    for img, yx, fh in inp["gathers"]:
+        ref = patch_kernel.gather_patches_plain(img, yx, P, fh)
+        assert torch.equal(out[start:start + yx.shape[0]], ref)
+        assert torch.equal(patch_kernel.gather_patches_cuda(img, yx, P, fh), ref)
+        start += yx.shape[0]
+    assert start == out.shape[0] == 8 * cfg.frontend.max_raw_keypoints
+
+
+def _random_levels(seed, dev):
+    """1-8 levels of random shapes (widths not a multiple of 4 included),
+    stacked or not, some without keypoints, odd counts, centres off every
+    border; windows whose 8-keypoint tile needs more than 48 KB of shared
+    memory (P = 41) or more than the card's most (P = 90: fewer keypoints a
+    block)."""
+    rng = np.random.default_rng(seed)
+    P = int(rng.choice([33, 7, 41, 90]))
+    levels = []
+    for _ in range(int(rng.integers(1, 9))):
+        frames = int(rng.integers(1, 4))
+        fh = int(rng.integers(P, P + 40))
+        W = int(rng.integers(P, 300))
+        img = (_image(int(rng.integers(1 << 30)), frames * fh, W) + 0.5).to(dev)
+        n = int(rng.choice([0, 1, int(rng.integers(2, 400)) | 1]))
+        yx = np.stack([rng.integers(-40, frames * fh + 40, n), rng.integers(-40, W + 40, n)], -1)
+        levels.append((img, torch.from_numpy(yx.astype(np.int32)).to(dev),
+                       fh if rng.random() < 0.7 else None))
+    return levels, P
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_gather_patches_levels_random(dev, seed):
+    levels, P = _random_levels(seed, dev)
+    imgs, yxs, fhs = (list(x) for x in zip(*levels))
+    out = patch_kernel.gather_patches_levels_cuda(imgs, yxs, P, fhs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, patch_kernel.gather_patches_levels_plain(imgs, yxs, P, fhs))
+
+
+@pytest.mark.parametrize("batch", [8, 1])
+def test_one_gather_launch_per_batch_extract(dev, batch):
+    """batch_extract at B=8 (the chunk path) and B=1 (the host driver):
+    FAST+NMS once a level and the patch gather once for every level, and
+    the features bit-equal to the per-level describe's composition."""
+    from stereo_visual_slam_tpu_torch.models import frontend
+    from stereo_visual_slam_tpu_torch.profiling import production
+    from stereo_visual_slam_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    images = production.chunk_images(cfg, dev)[:batch]
+    batch_extract = frontend.make_batch_extractor(cfg, dev, with_depth=True)
+    st = batch_extract.stages
+    reset_launch_counts()
+    got = batch_extract(images)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"fast_nms": cfg.frontend.n_levels, "gather_patches": 1,
+                               "zncc_sweep": 1}
+    left = images[:, 0].float()
+    per_level = []
+    for i in range(len(st.levels)):
+        stacked, scores, yx = st.detect(i, st.level_image(left, i))
+        per_level.append((scores, yx, *st.describe(i, st.blur(stacked), yx)))
+    ref = st.merge(images, per_level, True)
+    for name, a, b in zip(frontend.FrameFeatures._fields, got, ref):
+        assert torch.equal(a, b), name
+
+
 def test_zncc_sweep_matches_plain(dev):
     rng = np.random.default_rng(3)
     left = torch.from_numpy(rng.uniform(0, 255, (96, 384)).astype(np.float32))

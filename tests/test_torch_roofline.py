@@ -163,7 +163,9 @@ def test_extract_stage_rows_sum_exactly_to_the_total(images):
     assert all(p.bytes_accessed > 0 for p in parts)
     blur, describe = counter.scopes["blur"], counter.scopes["describe"]
     assert 0 < blur.bytes_accessed < describe.bytes_accessed
-    assert whole.units["fast_nms"][0] == whole.units["gather_patches"][0] == cfg.frontend.n_levels
+    # FAST+NMS once a level, the patch gather once for every level
+    assert whole.units["fast_nms"][0] == cfg.frontend.n_levels
+    assert whole.units["gather_patches"][0] == 1
     assert whole.units["zncc_sweep"][0] == 1
 
     result = extract_cost.run(cfg, "cpu", images)
