@@ -21,9 +21,17 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
      with chunk 8 on the card, streamed frame by frame (process/flush, the
      CLI's default path); not Lost, >= 90 % tracked, BA ran, the
      default-profile accuracy gates, and every kernel launched in the run;
+     held to the JAX package's own run of that world (data/
+     reference_runs.json, pipeline/reference_runs.py): frames with equal
+     records, the first frame where the runs part, the camera-centre and
+     frame-to-frame motion gaps, and the bound (same frames, neither Lost,
+     keyframe counts within 1, ATE <= max(1.5 x, + 0.05 m) the JAX run's,
+     every camera centre and every frame-to-frame motion within 1e-3 m of
+     the JAX run's: reference_runs.CENTRE_BOUND_M, MOTION_BOUND_M);
   5. the host-sequenced driver (VisualOdometry, lookahead 1) on the same
      frames and Config(): the same gates, and the ZNCC kernel launched at
-     least once per frame (eager depth); frames/s and syncs/frame;
+     least once per frame (eager depth); frames/s and syncs/frame; held to
+     the JAX host driver's run as phase 4 is to the chunked one;
   6. the reference-faithful configuration (steered BRIEF, the reference's
      matcher gates and BA schedule) on ChunkedSlam over the first 24
      frames, staged (stage/run_staged: every chunk on the card first):
@@ -79,9 +87,11 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
      window each and the sharded schedule on one NCCL rank. Every row's
      device time is > 0 and <= its wall x 1.05; the FAST+NMS, patch
      gather and ZNCC kernels appear, by the names the profiler prints, in
-     the detect, describe and stereo rows; the extractor's stage walls sum
-     to <= batch_extract's x 1.25; matcher + PnP <= track_step x 1.25; the
-     one-rank schedule is bit-equal to no mesh;
+     the detect, describe and stereo rows; the extractor's stages' device
+     ms sum to <= batch_extract's x 1.25, matcher + PnP <= track_step x
+     1.25 (device ms: host-clock walls spread up to 2.1x between rows of
+     identical work, device ms do not); the one-rank schedule is
+     bit-equal to no mesh;
  13. the roofline (the cost model, utils/roofline.py, and the tools that
      read it), on phase 4's first chunk at Config(): (a) the per-phase
      report's four rows (profiling/roofline_report.py; phase 12's
@@ -123,6 +133,8 @@ import numpy as np
 import torch
 
 FRAMES = 64
+N_POINTS = 8000
+SEED = 0
 CHUNK = 8
 LOOKAHEAD = 1
 REF_FRAMES = 24
@@ -154,7 +166,7 @@ PROFILE_WINDOW_BEST_OF = 1   # the BA rows: only their device time is checked
 PROFILE_COMPOSED_R = 1       # chunk_step and the feats scan, ~1 s an iteration
 PROFILE_FLOOR_R = 20
 DEVICE_OVER_WALL = 1.05      # a row's device time may exceed its wall by this
-STAGES_OVER_WHOLE = 1.25     # sub-stage walls against the composed row's
+STAGES_OVER_WHOLE = 1.25     # sub-stage device ms against the composed row's
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 TOPK_R = 2                   # phase 13(c)'s r
 SHARE_BOUND = 1.05           # a roofline share above it is a wrong count or time
@@ -398,6 +410,24 @@ def accuracy(estimates, world, label):
     return ate, t_err
 
 
+def held_to_reference(stats, estimates, world, run, label):
+    """Phases 4-5: the run against the JAX package's run of the same world
+    by the same driver; a miss of the bound raises."""
+    from stereo_visual_slam_tpu_torch.pipeline import reference_runs
+
+    ref = reference_runs.load()
+    if ref["world"] != dict(config="Config()", n_frames=FRAMES, n_points=N_POINTS, seed=SEED):
+        raise AssertionError(f"{label}: the reference runs are of another world: {ref['world']}")
+    gaps = reference_runs.compare(reference_runs.records(stats, estimates), ref["runs"][run],
+                                  world.poses_T_c_w)
+    log(f"{label} against the JAX package's run ({ref['runs'][run]['driver']}, jax "
+        f"{ref['jax_version']} on the CPU): {reference_runs.summary(gaps)}")
+    missed = reference_runs.misses(gaps)
+    if missed:
+        raise AssertionError(f"{label}: outside the bound of the JAX package's run: {missed}")
+    return gaps
+
+
 def check_launches(launches, label):
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
@@ -444,6 +474,8 @@ def run_slice(frames, world, cfg):
     if ate > DEFAULT_GATES["ate"] or t_err > DEFAULT_GATES["trans"]:
         raise AssertionError("the slice misses the accuracy gates")
     check_extracts(launches, FRAMES // CHUNK, cfg.frontend.n_levels, "slice")
+    slam.reference_gaps = held_to_reference(slam.stats, slam.estimates, world, "chunked",
+                                           "slice")
     return launches, slam, wall
 
 
@@ -491,7 +523,9 @@ def run_host(frames, world, cfg):
     check_extracts(launches, FRAMES, cfg.frontend.n_levels, "host")
     if launches["zncc_sweep"] < n:
         raise AssertionError(f"host: ZNCC launched {launches['zncc_sweep']} times for {n} frames")
-    return launches, dict(frames_per_s=n / wall, syncs_per_frame=vo.syncs / n)
+    gaps = held_to_reference(vo.stats, vo.estimates, world, "host", "host")
+    return launches, dict(frames_per_s=n / wall, syncs_per_frame=vo.syncs / n,
+                          reference_gaps=gaps)
 
 
 def reference_faithful(cfg):
@@ -1304,23 +1338,24 @@ def run_profilers(cfg, frames, dev):
                        f"{seen['device_ms']:.4f} ms")
     log("profile, per iteration: " + "; ".join(in_rows))
     labels = production.labels(cfg)
-    stages = sum(prod[label.strip()]["wall_ms"] for label in labels[4:9])
-    whole = prod[labels[1]]["wall_ms"]
+    stages = sum(prod[label.strip()]["device_ms"] for label in labels[4:9])
+    whole = prod[labels[1]]["device_ms"]
     if not stages <= whole * STAGES_OVER_WHOLE:
-        raise AssertionError(f"phase 12: the extractor's stages take {stages:.3f} ms, "
-                             f"batch_extract {whole:.3f} ms")
-    split = {r["label"]: r["wall_ms"] for r in out["scan_split"]["rows"]}
+        raise AssertionError(f"phase 12: the extractor's stages take {stages:.3f} device ms, "
+                             f"batch_extract {whole:.3f}")
+    split = {r["label"]: r["device_ms"] for r in out["scan_split"]["rows"]}
     parts = split["matcher"] + split["PnP-RANSAC"]
     track = split[scan_split.LABELS[1]]
     if not parts <= track * STAGES_OVER_WHOLE:
-        raise AssertionError(f"phase 12: matcher + PnP take {parts:.3f} ms, track_step {track:.3f}")
+        raise AssertionError(f"phase 12: matcher + PnP take {parts:.3f} device ms, "
+                             f"track_step {track:.3f}")
     if not all(r["bit_equal_no_mesh"] and r["backend"] == "nccl" for r in win["scaling"]["nccl"]):
         raise AssertionError("phase 12: the one-rank NCCL schedule is not bit-equal to no mesh")
     for name in ("profile_production", "profile_scan_split"):
         check_launches(launches[name], name)
-    log(f"profilers: stages {stages:.3f} ms against batch_extract {whole:.3f} ms; matcher + PnP "
-        f"{parts:.3f} ms against track_step {track:.3f} ms; every row's device time within "
-        f"its wall")
+    log(f"profilers, device ms: stages {stages:.3f} against batch_extract {whole:.3f}; matcher + "
+        f"PnP {parts:.3f} against track_step {track:.3f}; every row's device time within its "
+        f"wall")
     summary = {name: [{k: r[k] for k in ("label", "wall_ms", "device_ms", "launches", "syncs")}
                       for r in res.get("rows", [])] for name, res in out.items()}
     summary["window"] = {k: [{f: r[f] for f in ("label", "wall_ms", "device_ms", "launches")}
@@ -1411,7 +1446,7 @@ def main() -> int:
 
     cfg = Config()
     t0 = time.perf_counter()
-    world = synthetic.make_world(cfg, n_frames=FRAMES, n_points=8000, seed=0)
+    world = synthetic.make_world(cfg, n_frames=FRAMES, n_points=N_POINTS, seed=SEED)
     frames = list(synthetic.frames(world))
     log(f"render: {FRAMES} frames in {time.perf_counter() - t0:.1f} s")
     walls["render"] = time.perf_counter() - t0
@@ -1479,6 +1514,7 @@ def main() -> int:
                              "brief_bit_flips", "steered_bit_flips", "brief_bits")}))
     g = measured["gather_patches"]
     print(json.dumps({"kernels": rows, "host_driver": host_rates,
+                      "slice_reference_gaps": slice_run.reference_gaps,
                       "mesh": {"nccl_1_rank": mesh_one, f"gloo_{MESH_RANKS}_ranks": mesh_two},
                       "dataset": dataset, **benched, "entry_points": entry_points,
                       "soak": soaked, "profilers": profiled, "roofline": roofs,

@@ -33,10 +33,10 @@ def entry(device, config: Config | None = None):
 
     The example previous state has live random landmarks and descriptors
     (numpy's default_rng(0)), so that the PnP path is real; the PnP draws
-    are frame 0's of `tracking.pnp.seeded_noise(0, ...)`."""
+    are those of PRNGKey(0), the key the JAX entry point passes."""
     from stereo_visual_slam_tpu_torch.models import frontend as frontend_mod
     from stereo_visual_slam_tpu_torch.models import vslam
-    from stereo_visual_slam_tpu_torch.tracking.pnp import seeded_noise
+    from stereo_visual_slam_tpu_torch.utils import prng
 
     cfg = Config() if config is None else config
     device = torch.device(device)
@@ -66,7 +66,7 @@ def entry(device, config: Config | None = None):
                              rng.uniform(10, 60, n)], axis=-1)),
         signs=f32(np.where(rng.integers(0, 2, (n, cfg.frontend.descriptor_bits)), 1.0, -1.0)),
     )
-    gumbel, twist_noise = seeded_noise(0, cfg.pnp.n_hypotheses, n, device)(0)
+    gumbel, twist_noise = prng.pnp_draws(prng.prng_key(0), cfg.pnp.n_hypotheses, n, device)
     example_args = (left, right, prev, torch.eye(4, dtype=torch.float32, device=device),
                     torch.tensor(1.0, device=device), gumbel, twist_noise)
     return step, example_args
@@ -82,8 +82,8 @@ def dryrun_multichip(n_devices: int, device, config: Config | None = None,
     the mesh; rank 0 prints the summary line. Returns the run's summary."""
     from stereo_visual_slam_tpu_torch.data import render_pool, synthetic
     from stereo_visual_slam_tpu_torch.models import slam_core
-    from stereo_visual_slam_tpu_torch.tracking.pnp import seeded_noise
     from stereo_visual_slam_tpu_torch.utils import dist as dist_utils
+    from stereo_visual_slam_tpu_torch.utils import prng
 
     base = Config() if config is None else config
     cfg = base.replace(keyframe=dataclasses.replace(base.keyframe, min_inliers_skip=10**6))
@@ -103,7 +103,8 @@ def dryrun_multichip(n_devices: int, device, config: Config | None = None,
         world = synthetic.make_world(cfg, n_frames=n_frames, n_points=n_points, seed=0)
         step = slam_core.ChunkStep(cfg, device, mesh)
         carry = slam_core.init_carry(cfg, device)
-        noise = seeded_noise(0, cfg.pnp.n_hypotheses, cfg.frontend.max_raw_keypoints, device)
+        noise = prng.frame_draws(prng.prng_key(0), cfg.pnp.n_hypotheses,
+                                 cfg.frontend.max_raw_keypoints, device)
         images = torch.zeros((chunk, 2, H, W), dtype=torch.uint8)
         records = []
         for f, left, right in render_pool.Renderer(0).frames(world):

@@ -26,7 +26,7 @@ rank makes the one decision the JAX program makes.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -162,8 +162,9 @@ class ChunkStep:
         step(carry, images (n, 2, H, W) u8, frame_ids, noise)
             -> (carry', [FrameRecord] * n)
 
-    `noise(frame_id)` returns the frame's PnP draws (gumbel (H, N),
-    twist_noise (H, 6)). `syncs` counts device-to-host fetches."""
+    `noise(frame_ids)` returns the chunk's PnP draws, one (gumbel (H, N),
+    twist_noise (H, 6)) pair a frame (`utils/prng.frame_draws`: the JAX
+    chunk program's). `syncs` counts device-to-host fetches."""
 
     def __init__(self, config: Config, device, mesh=None):
         self.config = config
@@ -383,12 +384,11 @@ class ChunkStep:
 
     # ----------------------------------------------------------------- chunk
     def __call__(self, carry: SlamCarry, images: torch.Tensor, frame_ids,
-                 noise: Callable[[int], Tuple[torch.Tensor, torch.Tensor]]):
+                 noise: Callable[[Sequence[int]], Sequence[Tuple[torch.Tensor, torch.Tensor]]]):
         feats = self.extract_chunk(images)
         records = []
-        for b, fid in enumerate(frame_ids):
+        for b, (fid, (gumbel, twist_noise)) in enumerate(zip(frame_ids, noise(frame_ids))):
             frame = FrameFeatures(*[f[b] for f in feats])
-            gumbel, twist_noise = noise(fid)
             carry, rec = self.feats_step(carry, frame, fid, gumbel, twist_noise, images[b])
             records.append(rec)
         return carry, records

@@ -75,13 +75,19 @@ def gather_patches(
 def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     """(in_size, out_size) float32 weights of `jax.image.resize(linear)`
     along one axis: jax/_src/image/scale.py `compute_weight_mat` with the
-    triangle kernel and antialiasing, evaluated in float32 numpy."""
+    triangle kernel and antialiasing, evaluated in float32 numpy as XLA
+    compiles it inside the JAX package's jitted extractor. There the scale
+    is a Python float, out_size / in_size, and so is 1 / scale: the
+    inverse scale is rounded to float32 once, from float64. And XLA fuses
+    the sample position (i + 0.5) * inv_scale - 0.5 into one multiply-add,
+    rounded once: here the product is exact in float64. (Rounded after
+    the multiply, the positions drift by up to an ulp of the column index,
+    6.1e-5 px at 1241 -> 1034, and the weights by up to 5.1e-5.)"""
     f32 = np.float32
-    scale = f32(out_size) / f32(in_size)
-    inv_scale = f32(1.0) / scale
+    inv_scale = f32(1.0 / (out_size / in_size))
     kernel_scale = max(inv_scale, f32(1.0))
-    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale \
-        - f32(0.0) * inv_scale - f32(0.5)
+    sample_f = ((np.arange(out_size, dtype=f32) + f32(0.5)).astype(np.float64)
+                * np.float64(inv_scale) - 0.5).astype(f32)
     x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) \
         / kernel_scale
     weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x)).astype(f32)

@@ -13,9 +13,9 @@ lazily, so host and device memory stay bounded on long sequences. All
 modes cut the sequence into the same chunks and give the same results.
 
 Partial chunks (the tail, or a flush before a snapshot) run only their real
-frames. The per-frame PnP noise is drawn from a generator reseeded from
-(seed, frame_id), so results do not depend on where the sequence is cut
-into chunks.
+frames. Frame f's PnP draws are the JAX driver's, from fold_in(PRNGKey(seed),
+f) (utils/prng.py), so results do not depend on where the sequence is cut
+into chunks, and a run draws what the JAX package's run draws.
 
 With `mesh` (utils/dist.LandmarkMesh), every rank feeds the same frames
 and holds the same state; the BA schedule runs sharded by landmark (see
@@ -37,7 +37,7 @@ import torch
 
 from stereo_visual_slam_tpu_torch.models import slam_core
 from stereo_visual_slam_tpu_torch.pipeline import trajectory
-from stereo_visual_slam_tpu_torch.tracking.pnp import seeded_noise
+from stereo_visual_slam_tpu_torch.utils import prng
 from stereo_visual_slam_tpu_torch.utils.config import Config
 
 NoiseFn = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
@@ -89,7 +89,8 @@ class _MapView:
 class ChunkedSlam:
     """`device` is required: "cuda" runs the kernels, "cpu" their plain
     versions; nothing picks one for the caller. `mesh`: the landmark mesh
-    this rank belongs to (None: one device)."""
+    this rank belongs to (None: one device). `noise_fn(frame_id)`, if
+    given, replaces the JAX stream's PnP draws of each frame."""
 
     def __init__(
         self,
@@ -104,17 +105,15 @@ class ChunkedSlam:
     ):
         self.config = config
         self.chunk = chunk
-        self.seed = seed
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ChunkedSlam: device 'cuda' requested, but no CUDA device")
         self.chunk_step = slam_core.ChunkStep(config, self.device, mesh)
         self.writes = mesh is None or mesh.rank == 0
         self.carry = slam_core.init_carry(config, self.device)
-        self.noise_fn = noise_fn if noise_fn is not None else seeded_noise(
-            seed, config.pnp.n_hypotheses, config.frontend.max_raw_keypoints,
-            self.device,
-        )
+        self.noise_fn = noise_fn
+        # the JAX ChunkedSlam's key; a snapshot carries it
+        self.key = prng.prng_key(seed)
         self._pin = self.device.type == "cuda"
         self._upload = torch.zeros((chunk, 2, *config.padded_hw), dtype=torch.uint8,
                                    pin_memory=self._pin)
@@ -244,9 +243,17 @@ class ChunkedSlam:
     def _dispatch(self, images: torch.Tensor, fids: List[int]):
         # the shared pinned buffer is rewritten only after this chunk's
         # syncs, which come after its copy in stream order
-        self.carry, records = self.chunk_step(self.carry, images, fids, self.noise_fn)
+        self.carry, records = self.chunk_step(self.carry, images, fids, self._draws)
         self.chunk_step.syncs += 1
         self._consume(_to_host(records))
+
+    def _draws(self, fids: List[int]):
+        """The chunk's PnP draws: one threefry pass for all its frames."""
+        if self.noise_fn is not None:
+            return [self.noise_fn(f) for f in fids]
+        cfg = self.config
+        return prng.frame_draws(self.key, cfg.pnp.n_hypotheses,
+                                cfg.frontend.max_raw_keypoints, self.device)(fids)
 
     def _consume(self, rows: List[dict]):
         for row in rows:
@@ -312,18 +319,18 @@ class ChunkedSlam:
         if not self.writes:
             return
         data = {"chunked_version": np.int64(1), "lost": np.bool_(self.lost)}
-        # the JAX ChunkedSlam's PRNGKey(seed), so the file loads there too
-        data["key"] = np.array([0, self.seed], np.uint32)
+        # the JAX ChunkedSlam's key, so the file loads there too
+        data["key"] = np.array(self.key, np.uint32)
         data.update(slam_core.carry_to_numpy(self.carry))
         np.savez_compressed(path, **data)
 
     def load_snapshot(self, path: str):
-        """Restore a carry saved by either package's save_snapshot (same
-        Config required). The JAX `key` entry is not read: this class's
-        noise comes from its own generator."""
+        """Restore a carry and the key saved by either package's
+        save_snapshot (same Config required)."""
         z = np.load(path, allow_pickle=False)
         assert int(z["chunked_version"]) == 1
         self.carry = slam_core.carry_from_numpy(z, self.device)
+        self.key = tuple(int(k) for k in z["key"])
         self.lost = bool(z["lost"])
 
 

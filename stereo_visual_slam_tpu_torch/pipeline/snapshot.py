@@ -6,8 +6,9 @@ JAX package's keys, so a snapshot of either package's host driver loads
 into the other. The counterpart of the chunked driver's carry conversion
 (`slam_core.carry_to_numpy` / `carry_from_numpy`).
 
-The JAX `rng` entry (the driver's PRNG key) is written as PRNGKey(seed) and
-never read: the port's noise is keyed on the frame id.
+The `rng` entry is the driver's PRNG key chain (utils/prng.py), as in the
+JAX package, so a resumed driver draws what the JAX driver draws after the
+same resume.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def save_snapshot(vo, path: str):
         last_frame_id=np.int64(vo.last_frame_id),
         num_lost=np.int64(vo.num_lost),
         vo_state=np.int64(vo.state.value),
-        rng=np.array([0, vo.seed], np.uint32),
+        rng=np.array(vo.rng, np.uint32),
     )
     if vo.dstate is not None:
         for name, t in vo.dstate._asdict().items():
@@ -83,6 +84,7 @@ def load_snapshot(vo, path: str):
     vo.last_frame_id = int(z["last_frame_id"])
     vo.num_lost = int(z["num_lost"])
     vo.state = VoState(int(z["vo_state"]))
+    vo.rng = tuple(int(k) for k in z["rng"])
     if "dstate_yx" in z:
         vo.dstate = vslam.TrackState(**{
             name: torch.from_numpy(np.array(z[f"dstate_{name}"])).to(vo.device)

@@ -25,9 +25,11 @@ The device state chains on the device; keyframe bookkeeping, BA feedback
 and the Lost fuse lag by k frames, as in the reference. `lookahead=0` is
 exact reference sequencing.
 
-The PnP draws come from `noise_fn(frame_id)`; the default reseeds a
-generator on the device from (seed, frame_id). The reference's JAX-only
-members (`warmup`, its compile timing) are not ported.
+The PnP draws are the JAX driver's: a key chain starts at PRNGKey(seed),
+and each submitted frame takes `rng, key = split(rng)` and draws from `key`
+(utils/prng.py); a snapshot carries the chain. `noise_fn(frame_id)`, if
+given, replaces them. The reference's JAX-only members (`warmup`, its
+compile timing) are not ported.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from stereo_visual_slam_tpu_torch.mapping.store import Keyframe, MapStore
 from stereo_visual_slam_tpu_torch.models import frontend as frontend_mod
 from stereo_visual_slam_tpu_torch.models import vslam
 from stereo_visual_slam_tpu_torch.pipeline import trajectory
-from stereo_visual_slam_tpu_torch.tracking.pnp import seeded_noise
+from stereo_visual_slam_tpu_torch.utils import prng
 from stereo_visual_slam_tpu_torch.utils.config import Config
 
 # columns of the per-frame host table: yx (2), valid, lm_id, lm_pos (3),
@@ -113,7 +115,6 @@ class VisualOdometry:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VisualOdometry: device 'cuda' requested, but no CUDA device")
-        self.seed = seed
         self.extract = frontend_mod.make_extractor(config, self.device)
         self.full_step = vslam.make_full_step(config, self.extract, self.device)
         _, self.keyframe_update = vslam.make_tracker(config, self.device)
@@ -123,10 +124,8 @@ class VisualOdometry:
         self.writer = trajectory.TrajectoryWriter(pose_path) if pose_path else None
         self.enable_ba = enable_ba
         self.lookahead = lookahead
-        self.noise_fn = noise_fn if noise_fn is not None else seeded_noise(
-            seed, config.pnp.n_hypotheses, config.frontend.max_raw_keypoints,
-            self.device,
-        )
+        self.noise_fn = noise_fn
+        self.rng = prng.prng_key(seed)
 
         self.state = TrackState.INIT
         self.dstate: Optional[vslam.TrackState] = None
@@ -238,7 +237,13 @@ class VisualOdometry:
     def _submit(self, frame_id: int, left, right):
         frame_gap = float(max(frame_id - self.last_frame_id, 1))
         images = self._upload(left, right)
-        gumbel, twist_noise = self.noise_fn(frame_id)
+        self.rng, key = prng.split(self.rng)
+        if self.noise_fn is not None:
+            gumbel, twist_noise = self.noise_fn(frame_id)
+        else:
+            gumbel, twist_noise = prng.pnp_draws(key, self.config.pnp.n_hypotheses,
+                                                 self.config.frontend.max_raw_keypoints,
+                                                 self.device)
         gap = torch.tensor(frame_gap, dtype=torch.float32, device=self.device)
         new_state, info, upgrade = self.full_step(
             images, self.dstate, gap, gumbel, twist_noise, self.next_lm_id

@@ -9,7 +9,8 @@ under the JAX tool's labels, each measured by timing.measure (wall, device
 busy time, launches and syncs per iteration):
 
   chunk_step        ChunkStep.__call__ from init_carry each iteration, the
-                    drivers' seeded PnP noise (no BA: the window is empty)
+                    JAX tool's PnP draws, fold_in(PRNGKey(0), frame id)
+                    (no BA: the window is empty)
   batch_extract     ChunkStep.extract_chunk
   feats scan        the 8 ChunkStep.feats_step calls on the chunk's
                     precomputed features, from init_carry each iteration
@@ -43,7 +44,7 @@ from stereo_visual_slam_tpu_torch.data import synthetic
 from stereo_visual_slam_tpu_torch.models import slam_core, vslam
 from stereo_visual_slam_tpu_torch.models.frontend import ExtractStages, FrameFeatures
 from stereo_visual_slam_tpu_torch.profiling import timing
-from stereo_visual_slam_tpu_torch.tracking.pnp import seeded_noise
+from stereo_visual_slam_tpu_torch.utils import prng
 
 B = 8
 N_POINTS = 8000
@@ -90,9 +91,9 @@ def frame(feats: FrameFeatures, b: int) -> FrameFeatures:
 
 
 def feats_scan(step, carry, feats, images, frame_ids, noise):
-    """The frame loop of ChunkStep.__call__ on precomputed features."""
-    for b, fid in enumerate(frame_ids):
-        gumbel, twist_noise = noise(fid)
+    """The frame loop of ChunkStep.__call__ on precomputed features, with
+    the chunk's draws `noise(frame_ids)`."""
+    for b, (fid, (gumbel, twist_noise)) in enumerate(zip(frame_ids, noise(frame_ids))):
         carry, _ = step.feats_step(carry, frame(feats, b), fid, gumbel, twist_noise, images[b])
     return carry
 
@@ -164,7 +165,8 @@ def phases(cfg, device, images: Optional[torch.Tensor] = None):
     fe = cfg.frontend
     step = slam_core.ChunkStep(cfg, device)
     st = step.extract.stages
-    noise = seeded_noise(0, cfg.pnp.n_hypotheses, fe.max_raw_keypoints, device)
+    noise = prng.frame_draws(prng.prng_key(0), cfg.pnp.n_hypotheses, fe.max_raw_keypoints,
+                             device)
     fids = list(range(B))
     feats0 = step.extract_chunk(images)
     carry0 = slam_core.init_carry(cfg, device)

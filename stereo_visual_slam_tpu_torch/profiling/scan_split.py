@@ -5,10 +5,11 @@ tools/profile_scan_split.py.
 
 Production Config() on the first B=8 frames of make_world(cfg, 9, 8000,
 seed 0). The first chunk runs through the real step (ChunkStep.feats_step
-over its extracted features, the drivers' seeded PnP noise) to give a
-mid-sequence carry. Then, with frame 0's features as the next frame, rows
-under the JAX tool's labels (timing.measure: wall, device busy time,
-launches and syncs per iteration):
+over its extracted features, frame f's PnP draws from fold_in(PRNGKey(0),
+f), as the JAX tool's) to give a mid-sequence carry. Then, with frame 0's
+features as the next frame, rows under the JAX tool's labels
+(timing.measure: wall, device busy time, launches and syncs per
+iteration):
 
   feats_step   ChunkStep.feats_step from that carry (the keyframe branch
                live: it runs whenever the frame is a keyframe)
@@ -18,11 +19,11 @@ launches and syncs per iteration):
   matcher      ops/matcher.match with the config's gates on the inputs
                track_step gives it
   PnP-RANSAC   tracking/pnp.solve_pnp_ransac on the JAX tool's N random
-               points, 20 % valid (default_rng(0)), with the seeded noise
-               of that frame id
+               points, 20 % valid (default_rng(0))
 
-and the JAX tool's derived line: insert and map bookkeeping is about
-feats_step minus track_step.
+(every row with the draws of PRNGKey(0) itself, the key the JAX tool
+passes its rows) and the JAX tool's derived line: insert and map
+bookkeeping is about feats_step minus track_step.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from stereo_visual_slam_tpu_torch.models import slam_core, vslam
 from stereo_visual_slam_tpu_torch.ops import matcher as matcher_ops
 from stereo_visual_slam_tpu_torch.profiling import production, timing
 from stereo_visual_slam_tpu_torch.tracking import pnp
+from stereo_visual_slam_tpu_torch.utils import prng
 
 B = production.B
 LABELS = ("feats_step (one frame, kf branch live)", "track_step (matcher+PnP+gathers)",
@@ -53,12 +55,13 @@ def setup(cfg, device, images: Optional[torch.Tensor] = None) -> dict:
         images = production.chunk_images(cfg, device, n_world=B + 1)
     N = cfg.frontend.max_raw_keypoints
     step = slam_core.ChunkStep(cfg, device)
-    noise = pnp.seeded_noise(0, cfg.pnp.n_hypotheses, N, device)
+    key = prng.prng_key(0)
+    noise = prng.frame_draws(key, cfg.pnp.n_hypotheses, N, device)
     feats = step.extract_chunk(images)
     carry = production.feats_scan(step, slam_core.init_carry(cfg, device), feats, images,
                                   list(range(B)), noise)
     fid = int(carry.last_frame_id) + 1
-    gumbel, twist_noise = noise(fid)
+    gumbel, twist_noise = prng.pnp_draws(key, cfg.pnp.n_hypotheses, N, device)
     f0 = production.frame(feats, 0)
     tstate = carry.tstate
     # feats_step's tracker inputs (slam_core.ChunkStep.feats_step)

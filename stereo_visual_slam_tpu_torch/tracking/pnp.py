@@ -3,9 +3,10 @@ tracking/pnp.py).
 
 The random draws come in as tensors — `gumbel` (H, N) for the minimal-set
 sampling and `twist_noise` (H, 6) for the hypothesis-start diversity —
-instead of a key. `ChunkedSlam` draws them on the device from a reseeded
-`torch.Generator` (see `draw_noise`); the tests pass the very numbers
-`jax.random` draws, so both packages fit the same hypotheses.
+instead of a key. The drivers draw them on the device from the JAX
+package's own stream (`utils/prng.pnp_draws`: split(key) -> gumbel,
+normal, as tracking/pnp.py there), so both packages fit the same
+hypotheses.
 """
 
 from __future__ import annotations
@@ -19,36 +20,12 @@ from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.geom.linalg import solve6
 from stereo_visual_slam_tpu_torch.ops.fast import top_k_stable
 
-_TINY = torch.finfo(torch.float32).tiny
-
 
 class PnPResult(NamedTuple):
     T_c_w: torch.Tensor        # (4, 4) estimated pose
     inlier_mask: torch.Tensor  # (N,) bool
     n_inliers: torch.Tensor    # () int32
     best_score: torch.Tensor   # () int32 — inliers of the winning hypothesis
-
-
-def draw_noise(gen: torch.Generator, n_hypotheses: int, n: int, device):
-    """(gumbel (H, N), twist_noise (H, 6)) from `gen`: standard Gumbel as
-    -log(-log(U)), U uniform on [tiny, 1), as jax.random.gumbel draws it."""
-    u = torch.rand((n_hypotheses, n), generator=gen, device=device)
-    g = -torch.log(-torch.log(torch.clamp(u, min=_TINY)))
-    tw = torch.randn((n_hypotheses, 6), generator=gen, device=device)
-    return g, tw
-
-
-def seeded_noise(seed: int, n_hypotheses: int, n: int, device):
-    """A noise_fn(frame_id) for the drivers: `draw_noise` from a generator
-    on `device` reseeded from (seed, frame_id), so a frame's draws do not
-    depend on how the sequence is cut into chunks or resumed."""
-    gen = torch.Generator(device=device)
-
-    def noise(frame_id: int):
-        gen.manual_seed((seed * (1 << 32) + frame_id) % (1 << 63))
-        return draw_noise(gen, n_hypotheses, n, device)
-
-    return noise
 
 
 def _gn_step(T, pts_w, uv, w, K, damping):

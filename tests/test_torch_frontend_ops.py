@@ -217,6 +217,46 @@ def test_match_disparity_fields(stereo_pair):
     np.testing.assert_allclose(b.depth.numpy()[v], np.asarray(a.depth)[v], atol=1e-3)
 
 
+def _production_axes():
+    """(in, out) of every resize of the production pyramid (Config():
+    1241 x 376 valid pixels, 8 levels at scale 1.2), both axes."""
+    from stereo_visual_slam_tpu_torch.models.frontend import _level_geometry
+    from stereo_visual_slam_tpu_torch.utils.config import Config
+
+    vh, vw = Config().image_hw
+    return [(n, m) for _, (h, w), _, _ in _level_geometry(Config())[1:]
+            for n, m in ((vh, h), (vw, w))]
+
+
+# what XLA's compiled weight code rounds differently from numpy here (its
+# fused normalisation; not reproduced): 1.3e-6 at most on these sizes.
+# The sample positions rounded after the multiply gave 5.1e-5 (PERF.md).
+RESIZE_WEIGHT_ATOL = 3e-6
+
+
+@pytest.mark.parametrize("in_out", _production_axes(), ids=lambda p: f"{p[0]}to{p[1]}")
+def test_resize_weights_match_jax_at_production_sizes(in_out):
+    """The weights `jax.image.resize` applies inside the JAX package's
+    jitted extractor (the resize of the identity, jitted) against the
+    port's, at the production pyramid's sizes."""
+    n, m = in_out
+    ref = jax.jit(jax.vmap(lambda c: jax.image.resize(c, (m,), method="linear")))(
+        jnp.eye(n, dtype=jnp.float32))
+    np.testing.assert_allclose(timage.resize_weights(n, m), np.asarray(ref),
+                               atol=RESIZE_WEIGHT_ATOL, rtol=0)
+
+
+def test_production_level_images_match_jax():
+    """Level 1 of a production-size frame (1241 x 376 -> 1034 x 313): the
+    port's pixels within 1e-3 gray levels of jax.image.resize's under jit
+    (measured 7.6e-5; 9.9e-3 with the sample positions rounded after the
+    multiply)."""
+    img = np.random.default_rng(3).uniform(0, 255, (376, 1241)).astype(np.float32)
+    ref = jax.jit(lambda x: jax.image.resize(x, (313, 1034), method="linear"))(jnp.asarray(img))
+    out = timage.resize_linear(T(img), timage.resize_matrices(img.shape, (313, 1034), "cpu"))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3, rtol=0)
+
+
 @pytest.mark.parametrize("out_hw", [(107, 213), (62, 123), (30, 59)])
 def test_resize_matches_jax_image_resize(out_hw):
     img = _corner_image(9, 128, 256)

@@ -4,8 +4,10 @@ the images that stress them (borders, plateaus, flat patches, thresholds
 that pass every pixel or none through FAST's early reject); and both drivers on the card against the CPU on a small slice (the host
 driver also under lookahead, through its pinned upload ring).
 They need a CUDA card (and nvcc to build the kernels): marked `cuda`, they
-skip without one. On the card, where jax is not installed (tests/conftest.py
-imports it): python -m pytest --noconftest tests/test_torch_kernels_cuda.py
+skip without one. On the card, run them without tests/conftest.py, which
+imports jax, pins it to 8 virtual CPU devices and turns its compilation
+cache on, none of which the port uses:
+python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 """
 
 import numpy as np
@@ -309,15 +311,16 @@ def test_small_slice_card_equals_cpu(dev):
     from stereo_visual_slam_tpu_torch.pipeline.chunked import ChunkedSlam
     from stereo_visual_slam_tpu_torch.data import synthetic
     from stereo_visual_slam_tpu_torch.utils.config import small_config
-    from stereo_visual_slam_tpu_torch.tracking.pnp import draw_noise
+    from stereo_visual_slam_tpu_torch.utils import prng
 
     cfg = small_config()
     cfg = cfg.replace(camera=dataclasses.replace(cfg.camera, cx=128.0, cy=64.0))
     world = synthetic.make_world(cfg, n_frames=8, n_points=1500, seed=0)
     frames = list(synthetic.frames(world))
-    gen = torch.Generator().manual_seed(0)
+    # the same draws, made on the CPU, for both devices
     H, N = cfg.pnp.n_hypotheses, cfg.frontend.max_raw_keypoints
-    noise = {f: draw_noise(gen, H, N, "cpu") for f, _, _ in frames}
+    noise = {f: prng.pnp_draws(prng.fold_in(prng.prng_key(0), f), H, N, "cpu")
+             for f, _, _ in frames}
     runs = {}
     for d in ("cpu", dev):
         slam = ChunkedSlam(cfg, chunk=8, device=d,
@@ -381,12 +384,13 @@ def test_host_driver_card_equals_cpu_keyframe_at_frame_1(dev):
 
 def _host_card_vs_cpu(dev, **keyframe):
     from stereo_visual_slam_tpu_torch.pipeline.vo import VisualOdometry
-    from stereo_visual_slam_tpu_torch.tracking.pnp import draw_noise
+    from stereo_visual_slam_tpu_torch.utils import prng
 
     cfg, frames = _small_slice(14, **keyframe)
-    gen = torch.Generator().manual_seed(0)
+    # the same draws, made on the CPU, for both devices
     H, N = cfg.pnp.n_hypotheses, cfg.frontend.max_raw_keypoints
-    noise = {f: draw_noise(gen, H, N, "cpu") for f, _, _ in frames}
+    noise = {f: prng.pnp_draws(prng.fold_in(prng.prng_key(0), f), H, N, "cpu")
+             for f, _, _ in frames}
     runs = {}
     for d in ("cpu", dev):
         vo = VisualOdometry(cfg, device=d,

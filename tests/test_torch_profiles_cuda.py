@@ -6,7 +6,9 @@ frames, seed 5) and the long run with eviction churn (tests/test_long_run.py,
 ChunkedSlam fed frame by frame. Frames render on a process pool.
 
 They need a CUDA card: marked `cuda`, they skip without one. On the card,
-where jax is not installed (tests/conftest.py imports it):
+run them without tests/conftest.py, which imports jax, pins it to 8
+virtual CPU devices and turns its compilation cache on, none of which
+the port uses:
 python -m pytest --noconftest tests/test_torch_profiles_cuda.py
 """
 

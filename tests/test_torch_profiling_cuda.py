@@ -6,7 +6,9 @@ what feats_step computes, one NCCL rank's schedule equals no mesh, and an
 entry point prints the card's JSON line.
 
 They need a CUDA card: marked `cuda`, they skip without one. On the card,
-where jax is not installed (tests/conftest.py imports it):
+run them without tests/conftest.py, which imports jax, pins it to 8
+virtual CPU devices and turns its compilation cache on, none of which
+the port uses:
 python -m pytest --noconftest tests/test_torch_profiling_cuda.py
 """
 

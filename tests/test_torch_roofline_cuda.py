@@ -5,7 +5,9 @@ plain twins), and a counted run launches the kernels and computes what an
 uncounted one does.
 
 They need a CUDA card: marked `cuda`, they skip without one. On the card,
-where jax is not installed (tests/conftest.py imports it):
+run them without tests/conftest.py, which imports jax, pins it to 8
+virtual CPU devices and turns its compilation cache on, none of which
+the port uses:
 python -m pytest --noconftest tests/test_torch_roofline_cuda.py
 """
 

@@ -5,7 +5,7 @@ by the reference's.
 
 Case 2, production-shaped: small_config with its 3 pyramid levels, 24
 frames. The coarse levels go through the pyramid resize, whose pixels
-differ by a few 1e-3 gray levels, so per-frame equality is not expected.
+differ by up to 6e-4 gray levels, so per-frame equality is not expected.
 
 small_config exactly as the package defines it: its KITTI principal point
 (607, 185) lies outside the 128x256 image, so every observation sits in
