@@ -1,0 +1,108 @@
+# Frozen copy of stereo_visual_slam_tpu_torch/tracking/pnp.py at commit c627a7a, part of
+# the benchmark's plain reference: imports renamed, nothing else changed.
+"""Batched PnP-RANSAC + robust Gauss-Newton refinement (port of
+tracking/pnp.py).
+
+The random draws come in as tensors — `gumbel` (H, N) for the minimal-set
+sampling and `twist_noise` (H, 6) for the hypothesis-start diversity —
+instead of a key. The drivers draw them on the device from the JAX
+package's own stream (`utils/prng.pnp_draws`: split(key) -> gumbel,
+normal, as tracking/pnp.py there), so both packages fit the same
+hypotheses.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from slam_bench.reference import residuals as res
+from slam_bench.reference import se3
+from slam_bench.reference.linalg import solve6
+from slam_bench.reference.fast import top_k_stable
+
+
+class PnPResult(NamedTuple):
+    T_c_w: torch.Tensor        # (4, 4) estimated pose
+    inlier_mask: torch.Tensor  # (N,) bool
+    n_inliers: torch.Tensor    # () int32
+    best_score: torch.Tensor   # () int32 — inliers of the winning hypothesis
+
+
+def _gn_step(T, pts_w, uv, w, K, damping):
+    """One damped Gauss-Newton step on pose only, batched over leading dims
+    of T (..., 4, 4); pts_w (..., n, 3), uv (..., n, 2), w (..., n)."""
+    r, Jp, depth_ok = res.reprojection_residual_jac(T[..., None, :, :], pts_w, uv, K)
+    w = w * depth_ok
+    JtJ = torch.einsum("...nri,...nrj,...n->...ij", Jp, Jp, w)
+    Jtr = torch.einsum("...nri,...nr,...n->...i", Jp, r, w)
+    A = JtJ + damping * torch.eye(6, dtype=T.dtype, device=T.device)
+    delta = solve6(A, -Jtr)
+    return se3.compose(se3.exp(delta), T)
+
+
+def solve_pnp_ransac(
+    pts_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
+    K: torch.Tensor, T_init: torch.Tensor,
+    gumbel: torch.Tensor, twist_noise: torch.Tensor, *,
+    sample_size: int = 4, inlier_px: float = 4.0,
+    gn_iters_hypothesis: int = 10, gn_iters_refine: int = 10,
+    huber_px: float = 4.0, prior_spread=0.0,
+) -> PnPResult:
+    """Estimate T_c_w from world points (N, 3) and pixels (N, 2) with
+    outliers; H = gumbel.shape[0] hypotheses start from T_init (half of
+    them perturbed by twist_noise scaled up to prior_spread)."""
+    H = gumbel.shape[0]
+    dtype, dev = pts_w.dtype, pts_w.device
+
+    # --- H minimal sets over valid entries (Gumbel top-k, lowest index
+    #     first among ties, -inf ties included)
+    g = torch.where(valid[None, :], gumbel, float("-inf"))
+    _, sample_idx = top_k_stable(g, sample_size)             # (H, S)
+
+    # --- hypothesis starts: half the exact prior, half perturbed
+    ramp = torch.linspace(0.0, 1.0, H, dtype=dtype, device=dev)
+    scale = torch.where(torch.arange(H, device=dev) < H // 2, 0.0, ramp) * prior_spread
+    rot_w = torch.tensor([1.0, 1.0, 1.0, 0.05, 0.05, 0.05], dtype=dtype, device=dev)
+    twists = twist_noise * scale[:, None] * rot_w
+    T_starts = se3.compose(se3.exp(twists), T_init)          # (H, 4, 4)
+
+    p = pts_w[sample_idx]                                    # (H, S, 3)
+    u = uv[sample_idx]                                       # (H, S, 2)
+    w = torch.ones((H, sample_size), dtype=dtype, device=dev)
+    T_hyp = T_starts
+    for _ in range(gn_iters_hypothesis):
+        T_hyp = _gn_step(T_hyp, p, u, w, K, 1e-4)
+
+    # --- score every hypothesis against every point
+    r, _, depth_ok = res.reprojection_residual_jac(T_hyp[:, None], pts_w[None], uv[None], K)
+    err = torch.linalg.vector_norm(r, dim=-1)
+    inlier_sets = valid[None] & depth_ok.bool() & (err < inlier_px)  # (H, N)
+    scores = inlier_sets.sum(dim=1, dtype=torch.int32)
+    best = torch.argmax(scores)
+    best_score = scores[best]
+    T_best = T_hyp[best]
+    inl0 = inlier_sets[best].to(dtype)
+
+    # --- robust refinement on the winning consensus set
+    T_ref = T_best
+    for _ in range(gn_iters_refine):
+        r, _, depth_ok = res.reprojection_residual_jac(T_ref, pts_w, uv, K)
+        w_ref = res.huber_weight(r, huber_px) * inl0 * depth_ok
+        T_ref = _gn_step(T_ref, pts_w, uv, w_ref, K, 1e-6)
+    T_ref = se3.normalize_rotation(T_ref)
+
+    # --- final inlier classification at the refined pose
+    r, _, depth_ok = res.reprojection_residual_jac(T_ref, pts_w, uv, K)
+    err = torch.linalg.vector_norm(r, dim=-1)
+    inlier_mask = valid & depth_ok.bool() & (err < inlier_px)
+    ok = best_score >= 4
+    T_out = torch.where(ok, T_ref, T_init)
+    inlier_mask = inlier_mask & ok
+    return PnPResult(
+        T_c_w=T_out,
+        inlier_mask=inlier_mask,
+        n_inliers=inlier_mask.sum(dtype=torch.int32),
+        best_score=best_score,
+    )
