@@ -19,6 +19,7 @@ from stereo_visual_slam_tpu_torch.ba.schur_lm import (
 )
 from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.geom.linalg import solve6
+from stereo_visual_slam_tpu_torch.utils import trace
 
 
 class PoseOnlyResult(NamedTuple):
@@ -61,7 +62,10 @@ def optimize_pose_only(
     cost = robust_cost(r0, problem, huber_delta, d0, mesh)
     lam = torch.tensor(lambda_init, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
+    trace.add("ba.lm_iters", iters)
     for _ in range(iters):
+        if trace.enabled():
+            trace.add("ba.lm_useful", ~done)   # an iteration that can still move the state
         dxi = solve(T, lam)
         T_new = se3.normalize_rotation(se3.compose(se3.exp(dxi), T))
         r2, d2 = residual_cheap(T_new)

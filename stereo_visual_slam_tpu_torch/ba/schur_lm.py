@@ -24,6 +24,7 @@ import torch
 from stereo_visual_slam_tpu_torch.ba import residuals as res
 from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.geom.linalg import inv3x3
+from stereo_visual_slam_tpu_torch.utils import trace
 
 
 class BAProblem(NamedTuple):
@@ -166,7 +167,10 @@ def lm_optimize(
     cost = robust_cost(r0, problem, huber_delta, d0, mesh)
     lam = torch.tensor(lambda_init, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
+    trace.add("ba.lm_iters", iters)
     for _ in range(iters):
+        if trace.enabled():
+            trace.add("ba.lm_useful", ~done)   # an iteration that can still move the state
         r, Jp, Jl, depth_ok = res.residual_and_jacobians(
             T[None], P[:, None, :], problem.uv, K
         )

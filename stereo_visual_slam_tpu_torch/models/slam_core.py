@@ -36,6 +36,7 @@ from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.models import frontend as frontend_mod
 from stereo_visual_slam_tpu_torch.models import vslam
 from stereo_visual_slam_tpu_torch.models.frontend import FrameFeatures
+from stereo_visual_slam_tpu_torch.utils import trace
 from stereo_visual_slam_tpu_torch.utils.config import Config
 
 
@@ -164,7 +165,8 @@ class ChunkStep:
 
     `noise(frame_ids)` returns the chunk's PnP draws, one (gumbel (H, N),
     twist_noise (H, 6)) pair a frame (`utils/prng.frame_draws`: the JAX
-    chunk program's). `syncs` counts device-to-host fetches."""
+    chunk program's). `syncs` counts the host's waits on the device
+    (`wait`)."""
 
     def __init__(self, config: Config, device, mesh=None):
         self.config = config
@@ -190,24 +192,32 @@ class ChunkStep:
         self._fixed_pose = fixed
 
     # ------------------------------------------------------------------ host
+    def wait(self):
+        """A context around one host wait that the driver makes on purpose
+        (the branch fetch, a chunk's record fetch, a staged chunk's upload):
+        counted in `syncs` and traced as a `driver.wait` span."""
+        self.syncs += 1
+        return trace.span("driver.wait")
+
     def fetch(self, *scalars: torch.Tensor) -> List[int]:
         """One device-to-host sync for a few integer/bool scalars. On a
         mesh, rank 0's values: a rank that alone took the keyframe branch
         would wait forever in the BA's first collective."""
-        self.syncs += 1
         vals = torch.stack([s.to(torch.int64) for s in scalars])
         if self.mesh is not None:
             vals = self.mesh.broadcast(vals)
-        return vals.tolist()
+        with self.wait():
+            return vals.tolist()
 
     def extract_chunk(self, images: torch.Tensor) -> FrameFeatures:
         """Batched extraction; on a mesh whose size divides B, rank r
         extracts its B/n frames and every rank assembles the B tables."""
         m = self.mesh
-        if m is None or images.shape[0] % m.size:
-            return self.extract(images)
-        feats = self.extract(images[m.rows(images.shape[0])])
-        return FrameFeatures(*[m.all_gather(f) for f in feats])
+        with trace.span("extract"):
+            if m is None or images.shape[0] % m.size:
+                return self.extract(images)
+            feats = self.extract(images[m.rows(images.shape[0])])
+            return FrameFeatures(*[m.all_gather(f) for f in feats])
 
     # ---------------------------------------------------------------- insert
     def insert_keyframe(self, tstate, mstate, feats, frame_id: int, kf_count: int):
@@ -348,14 +358,17 @@ class ChunkStep:
             # is_kf implies ok, so this frame is accepted: the map needs no
             # select against the previous one
             if self.depth_fn is not None:
-                feats = feats._replace(**self.depth_fn(image, feats))
-            new_t, new_m, n_new, evict = self.insert_keyframe(
-                base, mstate, feats, frame_id, kf_count
-            )
+                with trace.span("keyframe.depth"):
+                    feats = feats._replace(**self.depth_fn(image, feats))
+            with trace.span("keyframe.insert"):
+                new_t, new_m, n_new, evict = self.insert_keyframe(
+                    base, mstate, feats, frame_id, kf_count
+                )
             ba_ran = cfg.ba.enable_ba and min(kf_count + 1, Kw) >= Kw
             ba_cost = zero_f
             if ba_ran:
-                new_t, new_m, ba_cost = self.run_ba(new_t, new_m, Kw)
+                with trace.span("keyframe.ba"):
+                    new_t, new_m, ba_cost = self.run_ba(new_t, new_m, Kw)
         else:
             new_t, new_m, ba_ran, ba_cost = base, mstate, False, zero_f
             n_new = torch.zeros((), dtype=torch.int32, device=dev)
@@ -388,7 +401,8 @@ class ChunkStep:
         feats = self.extract_chunk(images)
         records = []
         for b, (fid, (gumbel, twist_noise)) in enumerate(zip(frame_ids, noise(frame_ids))):
-            frame = FrameFeatures(*[f[b] for f in feats])
-            carry, rec = self.feats_step(carry, frame, fid, gumbel, twist_noise, images[b])
+            with trace.span("frame", frame=fid):
+                frame = FrameFeatures(*[f[b] for f in feats])
+                carry, rec = self.feats_step(carry, frame, fid, gumbel, twist_noise, images[b])
             records.append(rec)
         return carry, records

@@ -16,6 +16,7 @@ from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.models.frontend import FrameFeatures
 from stereo_visual_slam_tpu_torch.ops import matcher as matcher_ops
 from stereo_visual_slam_tpu_torch.tracking import pnp
+from stereo_visual_slam_tpu_torch.utils import trace
 from stereo_visual_slam_tpu_torch.utils.config import Config
 
 
@@ -93,53 +94,56 @@ def make_tracker(config: Config, device):
 
     def track_step(curr: FrameFeatures, prev: TrackState, T_init, frame_gap,
                    gumbel, twist_noise):
-        # predict each tracked landmark in the current frame from the prior
-        Xc = se3.act(T_init, prev.lm_pos)
-        z = torch.clamp(Xc[:, 2], min=1e-3)
-        pred_yx = torch.stack(
-            [K[1, 1] * Xc[:, 1] / z + K[1, 2], K[0, 0] * Xc[:, 0] / z + K[0, 2]],
-            dim=-1,
-        )
-        m = matcher_ops.match(
-            prev.signs, prev.valid, curr.signs, curr.valid, frame_gap,
-            pred_yx=pred_yx, curr_yx=curr.yx,
-            search_radius=mc.search_radius * frame_gap,
-            base_gate=mc.base_gate, min_dist_factor=mc.min_dist_factor,
-            margin=mc.margin,
-        )
-        yx_c = curr.yx[m.idx_curr]
-        uv = torch.stack([yx_c[:, 1], yx_c[:, 0]], dim=-1)
-        corr_valid = m.mask & prev.valid & (prev.lm_id >= 0)
-        res = pnp.solve_pnp_ransac(
-            prev.lm_pos, uv, corr_valid, K, T_init, gumbel, twist_noise,
-            sample_size=pc.sample_size, inlier_px=pc.inlier_px,
-            gn_iters_hypothesis=pc.gn_iters_hypothesis,
-            gn_iters_refine=pc.gn_iters_refine, huber_px=pc.huber_px,
-            prior_spread=pc.prior_spread * frame_gap,
-        )
-        # current-slot state by gathering through the matcher's
-        # current-side view
-        src = m.idx_last_of_curr
-        tracked = m.mask_curr & res.inlier_mask[src]
-        T_c_l = se3.compose(res.T_c_w, se3.inverse(prev.T_c_w))
-        new_state = TrackState(
-            yx=curr.yx,
-            valid=tracked,
-            signs=curr.signs,
-            lm_id=torch.where(tracked, prev.lm_id[src], -1),
-            lm_pos=torch.where(tracked[:, None], prev.lm_pos[src], 0.0),
-            lm_reliable=tracked & prev.lm_reliable[src],
-            T_c_w=res.T_c_w,
-            T_c_l=T_c_l,
-        )
-        info = TrackInfo(
-            n_matches=corr_valid.sum(dtype=torch.int32),
-            n_inliers=res.n_inliers,
-            twist_norm=torch.linalg.vector_norm(se3.log(T_c_l)),
-            angle_y=se3.angle_y(T_c_l),
-            T_c_l=T_c_l,
-        )
-        return new_state, info
+        with trace.span("track"):
+            # predict each tracked landmark in the current frame from the prior
+            Xc = se3.act(T_init, prev.lm_pos)
+            z = torch.clamp(Xc[:, 2], min=1e-3)
+            pred_yx = torch.stack(
+                [K[1, 1] * Xc[:, 1] / z + K[1, 2], K[0, 0] * Xc[:, 0] / z + K[0, 2]],
+                dim=-1,
+            )
+            with trace.span("track.match"):
+                m = matcher_ops.match(
+                    prev.signs, prev.valid, curr.signs, curr.valid, frame_gap,
+                    pred_yx=pred_yx, curr_yx=curr.yx,
+                    search_radius=mc.search_radius * frame_gap,
+                    base_gate=mc.base_gate, min_dist_factor=mc.min_dist_factor,
+                    margin=mc.margin,
+                )
+            yx_c = curr.yx[m.idx_curr]
+            uv = torch.stack([yx_c[:, 1], yx_c[:, 0]], dim=-1)
+            corr_valid = m.mask & prev.valid & (prev.lm_id >= 0)
+            with trace.span("track.pnp"):
+                res = pnp.solve_pnp_ransac(
+                    prev.lm_pos, uv, corr_valid, K, T_init, gumbel, twist_noise,
+                    sample_size=pc.sample_size, inlier_px=pc.inlier_px,
+                    gn_iters_hypothesis=pc.gn_iters_hypothesis,
+                    gn_iters_refine=pc.gn_iters_refine, huber_px=pc.huber_px,
+                    prior_spread=pc.prior_spread * frame_gap,
+                )
+            # current-slot state by gathering through the matcher's
+            # current-side view
+            src = m.idx_last_of_curr
+            tracked = m.mask_curr & res.inlier_mask[src]
+            T_c_l = se3.compose(res.T_c_w, se3.inverse(prev.T_c_w))
+            new_state = TrackState(
+                yx=curr.yx,
+                valid=tracked,
+                signs=curr.signs,
+                lm_id=torch.where(tracked, prev.lm_id[src], -1),
+                lm_pos=torch.where(tracked[:, None], prev.lm_pos[src], 0.0),
+                lm_reliable=tracked & prev.lm_reliable[src],
+                T_c_w=res.T_c_w,
+                T_c_l=T_c_l,
+            )
+            info = TrackInfo(
+                n_matches=corr_valid.sum(dtype=torch.int32),
+                n_inliers=res.n_inliers,
+                twist_norm=torch.linalg.vector_norm(se3.log(T_c_l)),
+                angle_y=se3.angle_y(T_c_l),
+                T_c_l=T_c_l,
+            )
+            return new_state, info
 
     def keyframe_update(state: TrackState, curr: FrameFeatures, next_lm_id: int):
         """Spawn landmarks (ids next_lm_id, next_lm_id + 1, ...) for untracked

@@ -29,6 +29,7 @@ depth (SVS_FETCH_BEHIND) and the timing counters.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -37,24 +38,26 @@ import torch
 
 from stereo_visual_slam_tpu_torch.models import slam_core
 from stereo_visual_slam_tpu_torch.pipeline import trajectory
-from stereo_visual_slam_tpu_torch.utils import prng
+from stereo_visual_slam_tpu_torch.utils import prng, trace
 from stereo_visual_slam_tpu_torch.utils.config import Config
 
 NoiseFn = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _to_host(records: List[slam_core.FrameRecord]) -> List[dict]:
+def _to_host(records: List[slam_core.FrameRecord],
+             wait: Callable = contextlib.nullcontext) -> List[dict]:
     """All tensor fields of a chunk's records to the host with one sync:
     non-blocking copies into pinned memory, then one synchronize of the
     stream they were queued on (the records' device's, which need not be
-    the current device)."""
+    the current device), inside `wait()` (`ChunkStep.wait`)."""
     fields = [f for f in slam_core.FrameRecord._fields
               if torch.is_tensor(getattr(records[0], f))]
     stacked = {f: torch.stack([getattr(r, f) for r in records]) for f in fields}
     host = {f: t.to("cpu", non_blocking=True) for f, t in stacked.items()}
     first = next(iter(stacked.values()))
-    if first.is_cuda:
-        torch.cuda.current_stream(first.device).synchronize()
+    with wait():
+        if first.is_cuda:
+            torch.cuda.current_stream(first.device).synchronize()
     out = []
     for i, r in enumerate(records):
         row = {f: host[f][i].numpy() for f in fields}
@@ -145,12 +148,12 @@ class ChunkedSlam:
         self.pending.append((frame_id, left, right))
         if len(self.pending) >= self.chunk:
             frames, self.pending = self.pending[: self.chunk], self.pending[self.chunk:]
-            self._dispatch(*self._fill(self._upload, self._upload_hw, frames))
+            self._stream(frames)
 
     def flush(self):
         """Run any buffered partial chunk."""
         if self.pending and not self.lost:
-            self._dispatch(*self._fill(self._upload, self._upload_hw, self.pending))
+            self._stream(self.pending)
         self.pending = []
 
     def run(self, frames, stage: bool = True):
@@ -180,7 +183,8 @@ class ChunkedSlam:
         for images, fids in staged:
             if self.lost:
                 break
-            self._dispatch(images, fids)
+            with trace.span("chunk", chunk=fids[0]):
+                self._dispatch(images, fids)
 
     def run_rolling(self, frames, window_chunks: int = 8, on_progress=None):
         """Bounded stage-ahead processing: at most `window_chunks` staged
@@ -204,7 +208,9 @@ class ChunkedSlam:
                     break
                 staged.append(self._stage_chunk(chunk))
             while staged and not self.lost and (len(staged) > low_water or exhausted):
-                self._dispatch(*staged.popleft())
+                images, fids = staged.popleft()
+                with trace.span("chunk", chunk=fids[0]):
+                    self._dispatch(images, fids)
             if on_progress is not None:
                 on_progress()
 
@@ -236,16 +242,21 @@ class ChunkedSlam:
                           pin_memory=self._pin)
         images, fids = self._fill(buf, np.zeros((len(frames), 2), np.int64), frames)
         if self._pin:
-            torch.cuda.current_stream(self.device).synchronize()
-            self.chunk_step.syncs += 1
+            with self.chunk_step.wait():
+                torch.cuda.current_stream(self.device).synchronize()
         return images, fids
+
+    def _stream(self, frames):
+        """One chunk of host frames, copied through the shared pinned
+        buffer; its `chunk` span runs from the copy to its last record."""
+        with trace.span("chunk", chunk=frames[0][0]):
+            self._dispatch(*self._fill(self._upload, self._upload_hw, frames))
 
     def _dispatch(self, images: torch.Tensor, fids: List[int]):
         # the shared pinned buffer is rewritten only after this chunk's
         # syncs, which come after its copy in stream order
         self.carry, records = self.chunk_step(self.carry, images, fids, self._draws)
-        self.chunk_step.syncs += 1
-        self._consume(_to_host(records))
+        self._consume(_to_host(records, self.chunk_step.wait))
 
     def _draws(self, fids: List[int]):
         """The chunk's PnP draws: one threefry pass for all its frames."""
