@@ -131,10 +131,11 @@ def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble 4x4 from (..., 3, 3) and (..., 3)."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
+    # the identity's last row, not a write of 1.0: on an unbatched T that
+    # slice is 0-dim, and the write a copy from the host
+    T = torch.eye(4, dtype=R.dtype, device=R.device).expand(batch + (4, 4)).contiguous()
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
     return T
 
 

@@ -88,9 +88,16 @@ def make_tracker(config: Config, device):
         track_step(curr, prev, T_init, frame_gap, gumbel, twist_noise)
             -> (TrackState, TrackInfo)
         keyframe_update(state, curr, next_lm_id) -> (TrackState, n_new, upgrade)
-    """
+
+    On the card, PnP-RANSAC replays as one CUDA graph a frame
+    (`pnp.graphed`), shared by every tracker of the process."""
     mc, pc = config.matcher, config.pnp
     K = camera_matrix(config, device)
+    solve_pnp = pnp.graphed(
+        sample_size=pc.sample_size, inlier_px=pc.inlier_px,
+        gn_iters_hypothesis=pc.gn_iters_hypothesis,
+        gn_iters_refine=pc.gn_iters_refine, huber_px=pc.huber_px,
+    )
 
     def track_step(curr: FrameFeatures, prev: TrackState, T_init, frame_gap,
                    gumbel, twist_noise):
@@ -114,11 +121,8 @@ def make_tracker(config: Config, device):
             uv = torch.stack([yx_c[:, 1], yx_c[:, 0]], dim=-1)
             corr_valid = m.mask & prev.valid & (prev.lm_id >= 0)
             with trace.span("track.pnp"):
-                res = pnp.solve_pnp_ransac(
+                res = solve_pnp(
                     prev.lm_pos, uv, corr_valid, K, T_init, gumbel, twist_noise,
-                    sample_size=pc.sample_size, inlier_px=pc.inlier_px,
-                    gn_iters_hypothesis=pc.gn_iters_hypothesis,
-                    gn_iters_refine=pc.gn_iters_refine, huber_px=pc.huber_px,
                     prior_spread=pc.prior_spread * frame_gap,
                 )
             # current-slot state by gathering through the matcher's
