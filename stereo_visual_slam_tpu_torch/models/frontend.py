@@ -37,6 +37,7 @@ from stereo_visual_slam_tpu_torch.ops import image as im_ops
 from stereo_visual_slam_tpu_torch.ops import orb as orb_ops
 from stereo_visual_slam_tpu_torch.ops import stereo as stereo_ops
 from stereo_visual_slam_tpu_torch.ops.kernels import fast_kernel, patch_kernel
+from stereo_visual_slam_tpu_torch.utils import trace
 from stereo_visual_slam_tpu_torch.utils.config import Config
 
 
@@ -220,7 +221,9 @@ class ExtractStages:
         """`describe` of every level, with one patch gather for all of them
         (one launch of the kernel): then BRIEF per level on that level's
         slice of the patches, at the per-level shapes, so the bits equal
-        `describe`'s. Returns [(packed, signs)] in level order."""
+        `describe`'s; BRIEF of all levels (with steering, the orientation
+        too) runs in the `extract.brief` span. Returns [(packed, signs)] in
+        level order."""
         fe = self.config.frontend
         yx_st = [self.stacked_yx(i, yx) for i, yx in enumerate(yx_list)]
         frame_hs = [H_i for _, _, (H_i, _), _ in self.levels[:len(yx_list)]]
@@ -228,10 +231,11 @@ class ExtractStages:
                   else patch_kernel.gather_patches_levels_plain)
         patches = gather(blurred_list, yx_st, fe.patch_size, frame_hs)
         out, start = [], 0
-        for yx, rows in zip(yx_list, yx_st):
-            B, n = yx.shape[:2]
-            out.append(self.brief(patches[start:start + rows.shape[0]], B, n))
-            start += rows.shape[0]
+        with trace.span("extract.brief"):
+            for yx, rows in zip(yx_list, yx_st):
+                B, n = yx.shape[:2]
+                out.append(self.brief(patches[start:start + rows.shape[0]], B, n))
+                start += rows.shape[0]
         return out
 
     def anms(self, yx_int: torch.Tensor, score: torch.Tensor) -> torch.Tensor:

@@ -117,6 +117,7 @@ def make_tracker(config: Config, device):
                     base_gate=mc.base_gate, min_dist_factor=mc.min_dist_factor,
                     margin=mc.margin,
                 )
+            trace.add("track.matches", m.mask)
             yx_c = curr.yx[m.idx_curr]
             uv = torch.stack([yx_c[:, 1], yx_c[:, 0]], dim=-1)
             corr_valid = m.mask & prev.valid & (prev.lm_id >= 0)
@@ -125,6 +126,8 @@ def make_tracker(config: Config, device):
                     prev.lm_pos, uv, corr_valid, K, T_init, gumbel, twist_noise,
                     prior_spread=pc.prior_spread * frame_gap,
                 )
+            # outside the graph: the replay's cloned outputs
+            trace.add("track.inliers", res.n_inliers)
             # current-slot state by gathering through the matcher's
             # current-side view
             src = m.idx_last_of_curr

@@ -29,7 +29,8 @@ N_FRAMES = 16
 CHUNK = 8
 # the layers' tree: each span's parent
 PARENTS = {
-    "chunk": {None}, "extract": {"chunk"}, "frame": {"chunk"}, "track": {"frame"},
+    "chunk": {None}, "extract": {"chunk"}, "extract.brief": {"extract"}, "frame": {"chunk"},
+    "track": {"frame"},
     "track.match": {"track"}, "track.pnp": {"track"}, "keyframe.depth": {"frame"},
     "keyframe.insert": {"frame"}, "keyframe.ba": {"frame"},
     # the branch fetch in a frame, the record fetch in its chunk
