@@ -60,7 +60,7 @@ def optimize_pose_only(
     T = problem.T_c_w
     r0, d0 = residual_cheap(T)
     cost = robust_cost(r0, problem, huber_delta, d0, mesh)
-    lam = torch.tensor(lambda_init, dtype=dtype, device=dev)
+    lam = torch.full((), lambda_init, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     trace.add("ba.lm_iters", iters)
     for _ in range(iters):

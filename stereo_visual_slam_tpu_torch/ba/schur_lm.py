@@ -4,7 +4,9 @@
 The window is a dense (L, K) observation grid with masks. The reference's
 early-exit `lax.while_loop` becomes a loop of exactly `iters` iterations in
 which a `done` flag freezes the carry with `torch.where`: the result equals
-the while loop's, and no iteration needs a device-to-host sync.
+the while loop's, and no iteration needs a device-to-host sync. The
+scalar constants are filled on the device, so nothing here waits on the
+host and a CUDA graph can capture it (ba/schedule.GraphedSchedule).
 
 With `mesh` (utils/dist.LandmarkMesh, the JAX `axis_name`), the problem
 holds this rank's landmark rows and every cross-landmark sum is summed over
@@ -75,7 +77,8 @@ def classify(chi2, m, chi2_threshold, adaptive_rounds, target_inlier_ratio, mesh
     pass, then flag landmarks whose worst observation fails it. The counts
     are f32 sums of masks: exact up to 2^24 edges."""
     (n_edges,) = psum(mesh, torch.sum(m))
-    th = torch.tensor(chi2_threshold, dtype=chi2.dtype, device=chi2.device)
+    # a fill on the device: a tensor from a host number would copy and wait
+    th = torch.full((), chi2_threshold, dtype=chi2.dtype, device=chi2.device)
     for _ in range(adaptive_rounds):
         (n_in,) = psum(mesh, torch.sum((chi2 <= th) * m))
         ratio = n_in / torch.clamp(n_edges, min=1.0)
@@ -165,7 +168,7 @@ def lm_optimize(
     T, P = problem.T_c_w, problem.points
     r0, d0 = residual_cheap(T, P)
     cost = robust_cost(r0, problem, huber_delta, d0, mesh)
-    lam = torch.tensor(lambda_init, dtype=dtype, device=dev)
+    lam = torch.full((), lambda_init, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     trace.add("ba.lm_iters", iters)
     for _ in range(iters):

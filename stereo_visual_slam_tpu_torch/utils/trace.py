@@ -28,6 +28,11 @@ the host's time in the layer, dispatch plus any wait inside it.
 tensor per name. `drain()` returns the closed rows and every counter's
 total with one sync, and clears them.
 
+Inside `collect()`, on or off, `enabled()` is true and the counters go to
+the `Counters` it yields instead: code captured into a CUDA graph counts
+into the graph's own outputs, and its caller hands them on with
+`add_counts` after each replay (ba/schedule.GraphedSchedule).
+
 The tracer is one per process, like torch's profiler, and spans open and
 close on one thread: the drivers dispatch from one.
 """
@@ -58,14 +63,31 @@ class Row:
     t1: Optional[int] = None
 
 
+class Counters:
+    """Counter totals: host numbers, and one device tensor per name."""
+
+    __slots__ = ("host", "device")
+
+    def __init__(self):
+        self.host: Dict[str, float] = {}
+        self.device: Dict[str, torch.Tensor] = {}
+
+    def add(self, name: str, value) -> None:
+        if torch.is_tensor(value):
+            v = value.sum()
+            self.device[name] = self.device[name] + v if name in self.device else v
+        else:
+            self.host[name] = self.host.get(name, 0) + value
+
+
 class _Tracer:
     def __init__(self):
         self.on = False
         self.rows: List[Row] = []
         self.open: List[Row] = []
         self.ids = itertools.count()
-        self.host: Dict[str, float] = {}
-        self.device: Dict[str, torch.Tensor] = {}
+        self.counters = Counters()
+        self.sink: Optional[Counters] = None   # `collect()`'s
 
 
 _TRACER = _Tracer()
@@ -109,7 +131,8 @@ def disable() -> None:
 
 
 def enabled() -> bool:
-    return _TRACER.on
+    """Whether `add` counts (the tracer on, or inside `collect()`)."""
+    return _TRACER.on or _TRACER.sink is not None
 
 
 def span(name: str, *, chunk: Optional[int] = None, frame: Optional[int] = None):
@@ -123,13 +146,32 @@ def add(name: str, value) -> None:
     """Add `value` (a host number, or a device tensor, summed) to the
     counter `name`."""
     tr = _TRACER
-    if not tr.on:
+    if tr.sink is not None:
+        tr.sink.add(name, value)
+    elif tr.on:
+        tr.counters.add(name, value)
+
+
+def add_counts(counts: Counters) -> None:
+    """`add` every counter of `counts` (what a `collect()` gathered)."""
+    if not enabled():
         return
-    if torch.is_tensor(value):
-        v = value.sum()
-        tr.device[name] = tr.device[name] + v if name in tr.device else v
-    else:
-        tr.host[name] = tr.host.get(name, 0) + value
+    for name, v in counts.host.items():
+        add(name, v)
+    for name, v in counts.device.items():
+        add(name, v)
+
+
+@contextlib.contextmanager
+def collect():
+    """Counters added inside go to the yielded `Counters`, whether the
+    tracer is on or off; spans are unchanged."""
+    tr = _TRACER
+    saved, tr.sink = tr.sink, Counters()
+    try:
+        yield tr.sink
+    finally:
+        tr.sink = saved
 
 
 def drain() -> Tuple[List[Row], Dict[str, float]]:
@@ -138,12 +180,13 @@ def drain() -> Tuple[List[Row], Dict[str, float]]:
     tr = _TRACER
     rows = [r for r in tr.rows if r.t1 is not None]
     tr.rows = [r for r in tr.rows if r.t1 is None]
-    totals = dict(tr.host)
-    if tr.device:
-        names = list(tr.device)
-        vals = torch.stack([tr.device[n].to(torch.float64) for n in names]).tolist()
+    c = tr.counters
+    totals = dict(c.host)
+    if c.device:
+        names = list(c.device)
+        vals = torch.stack([c.device[n].to(torch.float64) for n in names]).tolist()
         for n, v in zip(names, vals):
-            v = v if tr.device[n].is_floating_point() else int(v)
+            v = v if c.device[n].is_floating_point() else int(v)
             totals[n] = totals.get(n, 0) + v
-    tr.host, tr.device = {}, {}
+    tr.counters = Counters()
     return rows, totals
