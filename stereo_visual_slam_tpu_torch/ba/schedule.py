@@ -8,20 +8,19 @@ ba/pose_only), and the full (L,) inlier verdicts are assembled on every
 rank; poses and costs are replicated.
 
 On the card, without a mesh, `make_ba_schedule` hands out the process's
-one `GraphedSchedule` for the config: the schedule captured once as a CUDA
-graph and replayed, one launch from the host where the eager run makes
+one `cuda_graph.Graphed` of the schedule for the config: captured once as a
+CUDA graph and replayed, one launch from the host where the eager run makes
 6,000-18,000."""
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple
 
 import torch
-from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
 from stereo_visual_slam_tpu_torch.ba import pose_only as pose_only_mod
 from stereo_visual_slam_tpu_torch.ba import schur_lm
-from stereo_visual_slam_tpu_torch.utils import trace
+from stereo_visual_slam_tpu_torch.utils import cuda_graph
 from stereo_visual_slam_tpu_torch.utils.config import BAConfig
 
 
@@ -51,12 +50,16 @@ class ScheduleResult(NamedTuple):
     threshold: torch.Tensor  # () final adaptive chi2 threshold
 
 
-def make_ba_schedule(cfg: BAConfig, mesh=None) -> "GraphedSchedule":
+def make_ba_schedule(cfg: BAConfig, mesh=None):
     """The schedule closed over the static BA config:
-    run(inp: ScheduleInput, K) -> ScheduleResult. With `mesh`, every rank
-    passes the whole window and gets the whole result (eager); without,
-    the process's one `GraphedSchedule` for `cfg` (`graphed`)."""
-    return graphed(cfg) if mesh is None else GraphedSchedule(cfg, mesh)
+    run(inp: ScheduleInput, K) -> ScheduleResult. With `mesh`,
+    `eager_schedule(cfg, mesh)`: every rank passes the whole window and gets
+    the whole result; without, the process's one `cuda_graph.Graphed` of
+    `eager_schedule(cfg)`."""
+    if mesh is not None:
+        return eager_schedule(cfg, mesh)
+    return cuda_graph.shared(("ba.schedule", cfg),
+                             lambda: cuda_graph.Graphed(eager_schedule(cfg), "ba.schedule"))
 
 
 def eager_schedule(cfg: BAConfig, mesh=None):
@@ -113,97 +116,3 @@ def eager_schedule(cfg: BAConfig, mesh=None):
         )
 
     return run
-
-
-class _Graph(NamedTuple):
-    """One capture of the schedule: its static inputs (the ScheduleInput
-    fields, then K), the graph, the outputs each replay writes, and the
-    tracer's counters the captured run adds (`trace.collect`)."""
-
-    inputs: Tuple[torch.Tensor, ...]
-    graph: torch.cuda.CUDAGraph
-    outputs: ScheduleResult
-    counts: trace.Counters
-
-
-class GraphedSchedule:
-    """The schedule of `cfg`: the same arguments, the same values (the
-    graph replays the kernels of the eager run, in its order and with its
-    launch shapes).
-
-    CUDA inputs replay a CUDA graph: the first call of a (device, input
-    shapes and dtypes, TF32 setting) warms the eager run up on a side
-    stream, as capture requires, captures it into a private memory pool
-    and replays it; later calls copy their inputs into the graph's static
-    buffers on the current stream (no copy from the host, no wait) and
-    replay. The outputs are cloned, since the next replay overwrites them.
-    CPU inputs, a call under a TorchDispatchMode (the cost model's counter,
-    which a replay would bypass) and a mesh (its collectives) run the eager
-    schedule.
-
-    The captured run counts its LM iterations into the graph's outputs
-    (`trace.collect`), and each replay adds them to the tracer, so
-    `ba.lm_iters` and `ba.lm_useful` read as they do eager. `captures` and
-    `replays` count graphs captured and replayed; the tracer counts
-    `ba.schedule_graph` a replay and `ba.schedule_eager` an eager call."""
-
-    WARMUP = 3
-
-    def __init__(self, cfg: BAConfig, mesh=None):
-        self.mesh = mesh
-        self.run = eager_schedule(cfg, mesh)
-        self.graphs: Dict[tuple, _Graph] = {}
-        self.captures = 0
-        self.replays = 0
-
-    def __call__(self, inp: ScheduleInput, K: torch.Tensor) -> ScheduleResult:
-        if self.mesh is not None or not inp.points.is_cuda or is_in_torch_dispatch_mode():
-            trace.add("ba.schedule_eager", 1)
-            return self.run(inp, K)
-        inputs = (*inp, K)
-        key = (inp.points.device, torch.backends.cuda.matmul.allow_tf32,
-               *[(x.shape, x.dtype) for x in inputs])
-        g = self.graphs.get(key)
-        if g is None:
-            g = self.graphs[key] = self._capture(inputs)
-        else:
-            for buf, x in zip(g.inputs, inputs):
-                buf.copy_(x)
-        g.graph.replay()
-        self.replays += 1
-        trace.add("ba.schedule_graph", 1)
-        trace.add_counts(g.counts)
-        return ScheduleResult(*[t.clone() for t in g.outputs])
-
-    def _capture(self, inputs) -> _Graph:
-        dev = inputs[0].device
-        static = tuple(x.clone() for x in inputs)
-
-        def body():
-            with trace.collect() as counts:
-                return self.run(ScheduleInput(*static[:-1]), static[-1]), counts
-
-        stream = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP):
-                body()
-        stream.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), torch.cuda.graph(graph, stream=side):
-            outputs, counts = body()
-        self.captures += 1
-        return _Graph(static, graph, outputs, counts)
-
-
-_GRAPHED: Dict[BAConfig, GraphedSchedule] = {}
-
-
-def graphed(cfg: BAConfig) -> GraphedSchedule:
-    """The process's one `GraphedSchedule` for `cfg`: every driver built
-    with it shares its graphs, so a graph is captured once a process, not
-    once a driver."""
-    if cfg not in _GRAPHED:
-        _GRAPHED[cfg] = GraphedSchedule(cfg)
-    return _GRAPHED[cfg]

@@ -6,7 +6,7 @@ early-exit `lax.while_loop` becomes a loop of exactly `iters` iterations in
 which a `done` flag freezes the carry with `torch.where`: the result equals
 the while loop's, and no iteration needs a device-to-host sync. The
 scalar constants are filled on the device, so nothing here waits on the
-host and a CUDA graph can capture it (ba/schedule.GraphedSchedule).
+host and a CUDA graph can capture it (utils/cuda_graph.Graphed).
 
 With `mesh` (utils/dist.LandmarkMesh, the JAX `axis_name`), the problem
 holds this rank's landmark rows and every cross-landmark sum is summed over

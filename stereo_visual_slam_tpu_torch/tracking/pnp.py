@@ -10,21 +10,21 @@ hypotheses.
 
 On the card the per-frame tracker calls `graphed(...)`: the same function
 captured once as a CUDA graph and replayed, one launch from the host where
-the eager call makes some 5,700 (see `GraphedPnP`).
+the eager call makes some 5,700 (utils/cuda_graph).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
-from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
 from stereo_visual_slam_tpu_torch.ba import residuals as res
 from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.geom.linalg import solve6
 from stereo_visual_slam_tpu_torch.ops.fast import top_k_stable
-from stereo_visual_slam_tpu_torch.utils import trace
+from stereo_visual_slam_tpu_torch.utils import cuda_graph
 
 
 class PnPResult(NamedTuple):
@@ -130,97 +130,9 @@ def solve_pnp_ransac(
     )
 
 
-class _Graph(NamedTuple):
-    """One capture of `solve_pnp_ransac`: its static inputs (the tensor
-    arguments, then `prior_spread` as a 0-dim tensor), the graph, and the
-    outputs each replay writes."""
-
-    inputs: Tuple[torch.Tensor, ...]
-    graph: torch.cuda.CUDAGraph
-    outputs: PnPResult
-
-
-def _load(static: Tuple[torch.Tensor, ...], inputs, prior_spread) -> None:
-    """Copy a call's arguments into a graph's static inputs, on the current
-    stream: no copy from the host, no wait."""
-    for buf, x in zip(static[:-1], inputs):
-        buf.copy_(x)
-    if torch.is_tensor(prior_spread):
-        static[-1].copy_(prior_spread)
-    else:
-        static[-1].fill_(prior_spread)
-
-
-class GraphedPnP:
-    """`solve_pnp_ransac` with its settings fixed: the same arguments, the
-    same values (the graph replays the kernels of the eager call, in its
-    order and with its launch shapes).
-
-    CUDA inputs replay a CUDA graph: the first call of a (device, N, H,
-    dtype) warms the eager function up on a side stream, as capture
-    requires, captures it into a private memory pool and replays it; later
-    calls copy their inputs into the graph's static buffers and replay. The
-    four outputs are cloned, since the next replay overwrites them. CPU
-    inputs, and any call under a TorchDispatchMode (the cost model's
-    counter, which a replay would bypass), run the eager function.
-
-    `captures` and `replays` count graphs captured and replayed; the tracer
-    counts `track.pnp_graph` a replay and `track.pnp_eager` an eager call."""
-
-    def __init__(self, **settings):
-        self.settings = settings
-        self.graphs: Dict[tuple, _Graph] = {}
-        self.captures = 0
-        self.replays = 0
-
-    def __call__(self, pts_w, uv, valid, K, T_init, gumbel, twist_noise, *,
-                 prior_spread=0.0) -> PnPResult:
-        inputs = (pts_w, uv, valid, K, T_init, gumbel, twist_noise)
-        if not pts_w.is_cuda or is_in_torch_dispatch_mode():
-            trace.add("track.pnp_eager", 1)
-            return solve_pnp_ransac(*inputs, prior_spread=prior_spread, **self.settings)
-        key = (pts_w.device, pts_w.shape[0], gumbel.shape[0], pts_w.dtype)
-        g = self.graphs.get(key)
-        if g is None:
-            g = self.graphs[key] = self._capture(inputs, prior_spread)
-        else:
-            _load(g.inputs, inputs, prior_spread)
-        g.graph.replay()
-        self.replays += 1
-        trace.add("track.pnp_graph", 1)
-        return PnPResult(*[t.clone() for t in g.outputs])
-
-    def _capture(self, inputs, prior_spread) -> _Graph:
-        dev = inputs[0].device
-        static = tuple(torch.empty_like(x) for x in inputs) + (
-            torch.empty((), dtype=inputs[0].dtype, device=dev),)
-        _load(static, inputs, prior_spread)
-
-        def body():
-            return solve_pnp_ransac(*static[:-1], prior_spread=static[-1], **self.settings)
-
-        stream = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                body()
-        stream.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), torch.cuda.graph(graph, stream=side):
-            outputs = body()
-        self.captures += 1
-        return _Graph(static, graph, outputs)
-
-
-_GRAPHED: Dict[tuple, GraphedPnP] = {}
-
-
-def graphed(**settings) -> GraphedPnP:
-    """The process's one `GraphedPnP` for these settings (`solve_pnp_ransac`'s
-    keywords but `prior_spread`): every tracker built with them shares its
-    graphs, so a graph is captured once a process, not once a driver."""
-    key = tuple(sorted(settings.items()))
-    if key not in _GRAPHED:
-        _GRAPHED[key] = GraphedPnP(**settings)
-    return _GRAPHED[key]
+def graphed(**settings) -> cuda_graph.Graphed:
+    """The process's one `cuda_graph.Graphed` of `solve_pnp_ransac` with these
+    settings (its keywords but `prior_spread`), shared by every tracker."""
+    return cuda_graph.shared(
+        ("track.pnp", tuple(sorted(settings.items()))),
+        lambda: cuda_graph.Graphed(functools.partial(solve_pnp_ransac, **settings), "track.pnp"))

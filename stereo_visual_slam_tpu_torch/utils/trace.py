@@ -31,7 +31,7 @@ total with one sync, and clears them.
 Inside `collect()`, on or off, `enabled()` is true and the counters go to
 the `Counters` it yields instead: code captured into a CUDA graph counts
 into the graph's own outputs, and its caller hands them on with
-`add_counts` after each replay (ba/schedule.GraphedSchedule).
+`add_counts` after each replay (utils/cuda_graph.Graphed).
 
 The tracer is one per process, like torch's profiler, and spans open and
 close on one thread: the drivers dispatch from one.

@@ -5,31 +5,25 @@
   bit-equal to the port's plain path as the benchmark froze it
   (slam_bench/reference, commit c627a7a) under the production budget and
   the upstream project's, on a full window and on one still filling;
-- `make_ba_schedule` hands out the process's one `GraphedSchedule` for a
-  config, so two ChunkSteps share it, and a mesh gets its own;
-- `GraphedSchedule` runs the eager schedule on CPU tensors, under a
-  TorchDispatchMode and with a mesh, counts each such call as
-  `ba.schedule_eager`, and the LM counters read as the eager run's;
 - `trace.collect` gathers the counters added inside it, on or off, and
   `trace.add_counts` hands them on.
 
-The card's side (graph against eager, replays, syncs) is in
-tests/test_torch_ba_graph_cuda.py."""
+How `make_ba_schedule` hands the schedule out (one `cuda_graph.Graphed` a
+config, the plain eager schedule on a mesh) is tested with PnP's in
+tests/test_torch_cuda_graph.py. The card's side (graph against eager,
+replays, syncs) is in tests/test_torch_ba_graph_cuda.py."""
 
 import dataclasses
 
 import pytest
 import torch
-import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from slam_bench.reference import config as ref_config
 from slam_bench.reference import schedule as ref_schedule
 from stereo_visual_slam_tpu_torch.ba import schedule
-from stereo_visual_slam_tpu_torch.models import slam_core
 from stereo_visual_slam_tpu_torch.profiling import window
 from stereo_visual_slam_tpu_torch.utils import config as port_config
-from stereo_visual_slam_tpu_torch.utils import dist as port_dist
 from stereo_visual_slam_tpu_torch.utils import trace
 
 # the suite runs in several pytest-xdist workers on a few cores: one
@@ -41,10 +35,6 @@ L = 512
 KW = 10
 BUDGETS = {"production": port_config.BAConfig(),
            "upstream": port_config.reference_ba_schedule()}
-
-
-def iters_per_run(cfg) -> int:
-    return cfg.classify_passes * cfg.classify_iters + cfg.full_iters + cfg.pose_only_iters
 
 
 def make_input(kind: str, seed: int = 0):
@@ -88,10 +78,6 @@ class _Ops(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def equal(a, b) -> bool:
-    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
-
-
 @pytest.mark.parametrize("budget", list(BUDGETS))
 def test_schedule_builds_no_tensor_from_host_data(budget):
     inp, K = make_input("full")
@@ -119,86 +105,6 @@ def test_schedule_bit_equal_to_the_frozen_plain_path(budget, kind):
     # the window moved and some landmarks were judged
     assert not torch.equal(got.T_c_w, inp.T_c_w)
     assert 0 < int(got.inlier.sum()) < L
-
-
-def test_two_chunk_steps_share_one_schedule():
-    cfg = port_config.small_config()
-    a = slam_core.ChunkStep(cfg, "cpu")
-    b = slam_core.ChunkStep(cfg.replace(pnp=dataclasses.replace(cfg.pnp, n_hypotheses=8)),
-                            "cpu")
-    assert isinstance(a.run_schedule, schedule.GraphedSchedule)
-    assert a.run_schedule is b.run_schedule is schedule.graphed(cfg.ba)
-    other = dataclasses.replace(cfg.ba, full_iters=cfg.ba.full_iters + 1)
-    assert schedule.make_ba_schedule(other) is not a.run_schedule
-    assert schedule.make_ba_schedule(other) is schedule.graphed(other)
-
-
-@pytest.mark.parametrize("budget", list(BUDGETS))
-def test_graphed_schedule_runs_eager_on_the_cpu(tracer, budget):
-    cfg = BUDGETS[budget]
-    inp, K = make_input("full")
-    run = schedule.make_ba_schedule(cfg)
-    replays = run.replays
-    want = schedule.eager_schedule(cfg)(inp, K)
-    tracer.enable()
-    got = [run(inp, K) for _ in range(2)]
-    _, totals = tracer.drain()
-    tracer.enable()
-    schedule.eager_schedule(cfg)(inp, K)
-    _, eager_totals = tracer.drain()
-    for res in got:
-        assert equal(res, want)
-    assert totals.pop("ba.schedule_eager") == 2
-    assert totals == {k: 2 * v for k, v in eager_totals.items()}
-    assert totals["ba.lm_iters"] == 2 * iters_per_run(cfg)
-    assert 0 < totals["ba.lm_useful"] <= totals["ba.lm_iters"]
-    assert run.replays == replays and not run.graphs
-
-
-def test_graphed_schedule_runs_eager_under_a_dispatch_mode(tracer):
-    cfg = BUDGETS["production"]
-    inp, K = make_input("filling")
-    run = schedule.make_ba_schedule(cfg)
-    tracer.enable()
-    with _Ops() as plain:
-        want = schedule.eager_schedule(cfg)(inp, K)
-    tracer.drain()
-    with _Ops() as counted:
-        got = run(inp, K)
-    _, totals = tracer.drain()
-    assert equal(got, want)
-    # the mode saw every op of the eager run: nothing was replayed past it
-    assert counted.names == plain.names
-    assert totals["ba.schedule_eager"] == 1 and "ba.schedule_graph" not in totals
-    assert not run.graphs
-
-
-@pytest.fixture
-def one_rank_mesh():
-    """A one-rank gloo group in this process and its landmark mesh."""
-    if dist.is_initialized():
-        pytest.skip("a process group is already initialised")
-    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
-    try:
-        yield port_dist.make_landmark_mesh(1)
-    finally:
-        dist.destroy_process_group()
-
-
-def test_graphed_schedule_runs_eager_with_a_mesh(tracer, one_rank_mesh):
-    cfg = BUDGETS["upstream"]
-    inp, K = make_input("full")
-    run = schedule.make_ba_schedule(cfg, mesh=one_rank_mesh)
-    assert isinstance(run, schedule.GraphedSchedule)
-    assert run is not schedule.graphed(cfg) and run.mesh is one_rank_mesh
-    tracer.enable()
-    got = run(inp, K)
-    _, totals = tracer.drain()
-    # one rank's sums are the whole window's
-    assert equal(got, schedule.make_ba_schedule(cfg)(inp, K))
-    assert totals["ba.schedule_eager"] == 1
-    assert totals["ba.lm_iters"] == iters_per_run(cfg)
-    assert not run.graphs
 
 
 @pytest.mark.parametrize("on", [False, True], ids=["off", "on"])

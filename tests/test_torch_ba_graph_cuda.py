@@ -1,7 +1,7 @@
 """The per-keyframe BA schedule replayed as a CUDA graph
-(ba/schedule.GraphedSchedule) on the card, at the production window
-(Kw = 10 keyframes, L = 4,096 landmark rows), under the production budget
-and the upstream project's:
+(`make_ba_schedule`, a utils/cuda_graph.Graphed) on the card, at the
+production window (Kw = 10 keyframes, L = 4,096 landmark rows), under the
+production budget and the upstream project's:
 
 - the eager schedule waits on the host nowhere (torch's sync debug mode
   set to raise), so a graph can capture it;
@@ -25,7 +25,6 @@ python -m pytest --noconftest tests/test_torch_ba_graph_cuda.py
 
 import contextlib
 import dataclasses
-import functools
 
 import numpy as np
 import pytest
@@ -36,9 +35,8 @@ from stereo_visual_slam_tpu_torch.ba import schedule
 from stereo_visual_slam_tpu_torch.pipeline import chunked
 from stereo_visual_slam_tpu_torch.pipeline.vo import VisualOdometry
 from stereo_visual_slam_tpu_torch.profiling import window
-from stereo_visual_slam_tpu_torch.tracking import pnp
 from stereo_visual_slam_tpu_torch.utils import config as port_config
-from stereo_visual_slam_tpu_torch.utils import trace
+from stereo_visual_slam_tpu_torch.utils import cuda_graph, trace
 
 pytestmark = pytest.mark.cuda
 
@@ -101,7 +99,7 @@ class _Ops(TorchDispatchMode):
 @pytest.mark.parametrize("budget", list(BUDGETS))
 def test_replays_equal_eager_and_keep_their_outputs(production, budget):
     cfg = BUDGETS[budget]
-    run = schedule.GraphedSchedule(cfg)
+    run = cuda_graph.Graphed(schedule.eager_schedule(cfg), "ba.schedule")
     calls = windows([1, 2, 3, 4])
     got = [run(*calls[0])]
     assert (run.captures, run.replays) == (1, 1)
@@ -143,10 +141,9 @@ def records(stat: dict) -> dict:
 
 def all_eager(monkeypatch):
     """Drivers built inside this context run PnP and the BA schedule
-    eager."""
-    monkeypatch.setattr(pnp, "graphed",
-                        lambda **kw: functools.partial(pnp.solve_pnp_ransac, **kw))
-    monkeypatch.setattr(schedule, "graphed", schedule.eager_schedule)
+    eager: each `cuda_graph.shared` stage is its bare function."""
+    monkeypatch.setattr(cuda_graph, "_SHARED", {})
+    monkeypatch.setattr(cuda_graph, "Graphed", lambda fn, name: fn)
 
 
 def with_budget(cfg, budget):
@@ -172,7 +169,7 @@ def test_drivers_equal_with_graphs_and_eager(production, monkeypatch, driver, bu
     n_ba = sum(s.get("ba_cost") is not None or bool(s.get("ba_dispatched"))
                for s in graph.stats)
     assert n_ba >= 3 and len(graph.estimates) >= 48
-    assert schedule.graphed(cfg.ba).replays >= n_ba
+    assert schedule.make_ba_schedule(cfg.ba).replays >= n_ba
     # the host driver's records carry their host wall time (`wall_s`)
     assert [records(s) for s in graph.stats] == [records(s) for s in plain.stats]
     assert sorted(graph.estimates) == sorted(plain.estimates)
@@ -197,11 +194,11 @@ def traced(fn):
 def test_two_drivers_share_one_capture_and_count_as_eager(production, monkeypatch):
     cfg, frames = production
     cfg = with_budget(cfg, "upstream")
-    monkeypatch.setattr(schedule, "_GRAPHED", {})
+    monkeypatch.setattr(cuda_graph, "_SHARED", {})
     run_chunked(cfg, frames)
     slam, totals = traced(lambda: run_chunked(cfg, frames))
     n_ba = sum(s["ba_cost"] is not None for s in slam.stats)
-    run = schedule.graphed(cfg.ba)
+    run = schedule.make_ba_schedule(cfg.ba)
     assert (run.captures, run.replays) == (1, 2 * n_ba)
     assert len(run.graphs) == 1
     assert totals["ba.schedule_graph"] == n_ba

@@ -4,12 +4,13 @@ winner picked by a one-element index, `se3.make` with no scalar write),
 is bit-equal to the port's plain path as the benchmark froze it
 (slam_bench/reference, commit c627a7a) on clean points, on 30 % outliers,
 with perturbed starts and with fewer than 4 valid points (the prior pose
-kept); `se3.make` is bit-equal to the frozen one batched and unbatched;
-and the tracker's `GraphedPnP`, given CPU tensors, runs the eager function
-and counts each call as `track.pnp_eager`.
+kept); and `se3.make` is bit-equal to the frozen one batched and
+unbatched.
 
-The card's side (graph against eager, replays, syncs) is in
-tests/test_torch_pnp_graph_cuda.py."""
+How the tracker's `pnp.graphed` runs it (eager on the CPU and under a
+TorchDispatchMode, one capture shared a process) is tested with the BA
+schedule's in tests/test_torch_cuda_graph.py. The card's side (graph
+against eager, replays, syncs) is in tests/test_torch_pnp_graph_cuda.py."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,6 @@ from slam_bench.reference import pnp as ref_pnp
 from slam_bench.reference import se3 as ref_se3
 from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.tracking import pnp
-from stereo_visual_slam_tpu_torch.utils import trace
 
 # the suite runs in several pytest-xdist workers on a few cores: one
 # intra-op thread per process keeps the many small torch ops from
@@ -93,23 +93,3 @@ def test_se3_make_bit_equal_to_the_frozen_one(batch):
     if batch:
         assert torch.equal(se3.make(R, t[(0,) * len(batch)]),
                            ref_se3.make(R, t[(0,) * len(batch)]))
-
-
-def test_graphed_pnp_runs_eager_on_the_cpu():
-    s = scene(**SCENES["prior_spread"])
-    solver = pnp.graphed(**SETTINGS)
-    assert pnp.graphed(**dict(reversed(list(SETTINGS.items())))) is solver
-    replays = solver.replays
-    trace.disable()
-    trace.drain()
-    trace.enable()
-    try:
-        got = [solver(*s["args"], prior_spread=s["prior_spread"]) for _ in range(2)]
-    finally:
-        trace.disable()
-        _, totals = trace.drain()
-    want = pnp.solve_pnp_ransac(*s["args"], prior_spread=s["prior_spread"], **SETTINGS)
-    for res in got:
-        assert all(torch.equal(x, y) for x, y in zip(res, want))
-    assert totals == {"track.pnp_eager": 2}
-    assert solver.replays == replays and not solver.graphs

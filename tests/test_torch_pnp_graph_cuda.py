@@ -1,5 +1,6 @@
-"""PnP-RANSAC replayed as a CUDA graph (tracking/pnp.GraphedPnP) on the
-card, at the production shapes (N=2,048 matches, H=128 hypotheses):
+"""PnP-RANSAC replayed as a CUDA graph (`pnp.graphed`, a
+utils/cuda_graph.Graphed) on the card, at the production shapes (N=2,048
+matches, H=128 hypotheses):
 
 - the eager `solve_pnp_ransac` waits on the host nowhere (torch's sync
   debug mode set to raise), so a graph can capture it;
@@ -32,7 +33,7 @@ from stereo_visual_slam_tpu_torch.models import vslam
 from stereo_visual_slam_tpu_torch.pipeline import chunked
 from stereo_visual_slam_tpu_torch.pipeline.vo import VisualOdometry
 from stereo_visual_slam_tpu_torch.tracking import pnp
-from stereo_visual_slam_tpu_torch.utils import trace
+from stereo_visual_slam_tpu_torch.utils import cuda_graph, trace
 
 pytestmark = pytest.mark.cuda
 
@@ -113,7 +114,8 @@ def test_eager_pnp_never_waits_on_the_host(production):
 def test_replays_equal_eager_and_keep_their_outputs(production):
     cfg, _ = production
     dev = torch.device("cuda")
-    solver = pnp.GraphedPnP(**settings(cfg))
+    solver = cuda_graph.Graphed(functools.partial(pnp.solve_pnp_ransac, **settings(cfg)),
+                                "track.pnp")
     calls = [(inputs(cfg, seed, dev), spread)
              for seed, spread in ((1, torch.tensor(0.3, device=dev)), (2, 0.6), (3, 0.0))]
     got = [solver(*calls[0][0], prior_spread=calls[0][1])]
@@ -175,7 +177,7 @@ def test_drivers_equal_with_graph_and_eager(production, monkeypatch, driver):
 
 def test_two_drivers_share_one_capture(production, monkeypatch):
     cfg, frames = production
-    monkeypatch.setattr(pnp, "_GRAPHED", {})
+    monkeypatch.setattr(cuda_graph, "_SHARED", {})
     run_chunked(cfg, frames)
     trace.disable()
     trace.drain()
