@@ -17,6 +17,10 @@ Phases (each ends in torch.cuda.synchronize(); any failure raises):
      batch_extract on the first chunk (B=8) and its first frame (B=1)
      bit-equal to its composition through the per-level
      ExtractStages.describe, with one patch-gather launch a call;
+     PnP-RANSAC's two kernels at the tracker's shapes (H=128, N=2,048) on
+     three scenes: minimal sets, hypotheses and scores bit-equal to the
+     plain path's, the final pose within 1e-5, each kernel's time and
+     bound beside the plain path's;
   4. the slice: production Config(), a 64-frame synthetic world, ChunkedSlam
      with chunk 8 on the card, streamed frame by frame (process/flush, the
      CLI's default path); not Lost, >= 90 % tracked, BA ran, the
@@ -107,8 +111,9 @@ Each path's kernel launches are counted from 0 just before it runs; on the
 driver paths of phases 4-11 every batch_extract call (one a chunk on the
 chunked paths, one a frame on the host driver) launches FAST+NMS once a
 pyramid level and the patch gather exactly once, and ZNCC launches at least
-once a keyframe (phases 9-11) or a frame (phase 5). Each phase's wall is
-logged.
+once a keyframe (phases 9-11) or a frame (phase 5); PnP's two kernels
+launch as often as each other (a graph's replays count its launches).
+Each phase's wall is logged.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's `nvidia-smi` name and power limit, before that a JSON line with the
 kernels' measurements and per-path launch counts.
@@ -139,6 +144,8 @@ CHUNK = 8
 LOOKAHEAD = 1
 REF_FRAMES = 24
 ZNCC_ATOL = 2e-5
+PNP_POSE_ATOL = 1e-5       # phase 3: the kernels' final pose against the plain path's
+PNP_SCENES = ((1, 0.3), (2, 0.0), (3, 0.9))   # (seed, prior_spread) of phase 3's PnP calls
 # the default profile's accuracy gates of the JAX benchmark (bench.py:45-49)
 DEFAULT_GATES = dict(trans=1.5, ate=2.0)
 MESH_RANKS = 2
@@ -356,8 +363,74 @@ def check_kernels(cfg, frames, dev):
     log("zncc_sweep: " + ", ".join(
         f"N={z['shape'][0]} max |err| {z['max_abs_err']:.3g} {z['ms']:.4f} ms" for z in shapes)
         + f" (atol {ZNCC_ATOL}); valid/reliable equal")
+    results.update(check_pnp(cfg, dev))
     sync()
     return results
+
+
+def check_pnp(cfg, dev):
+    """K4, K5: PnP-RANSAC's kernels (ops/kernels/pnp_kernel) at the
+    tracker's shapes on PNP_SCENES (measure.pnp_inputs), against the plain
+    path: the minimal sets, T_hyp and scores bit-equal (NaN where the
+    plain path has NaN), the final pose within PNP_POSE_ATOL; the device
+    times of each kernel, of the plain hypothesis stage and of the plain
+    path whole, and each kernel's bound."""
+    from stereo_visual_slam_tpu_torch.ops.kernels import measure, pnp_kernel
+    from stereo_visual_slam_tpu_torch.tracking import pnp
+
+    pc = cfg.pnp
+    hkw = dict(sample_size=pc.sample_size, inlier_px=pc.inlier_px,
+               gn_iters_hypothesis=pc.gn_iters_hypothesis)
+    rkw = dict(inlier_px=pc.inlier_px, gn_iters_refine=pc.gn_iters_refine, huber_px=pc.huber_px)
+    kw = dict(hkw, **rkw)
+    ms = measure.device_ms
+    gaps, scenes = [], []
+    for seed, spread in PNP_SCENES:
+        args = measure.pnp_inputs(cfg, seed, dev)
+        H, N = args[5].shape
+        spread = torch.tensor(spread, device=dev)
+        half, rot_w = pnp._start_weights(H, torch.float32, dev)
+        hyp = pnp_kernel.pnp_hypotheses(*args, half, rot_w, spread, **hkw)
+        got = pnp_kernel.pnp_refine(*args[:5], hyp.T_hyp, hyp.scores, **rkw)
+        idx, T_hyp, scores, _ = pnp.hypotheses_plain(*args, prior_spread=spread, **hkw)
+        want = pnp.solve_pnp_ransac_plain(*args, prior_spread=spread, **kw)
+        sync()
+        same_T = (hyp.T_hyp == T_hyp) | (torch.isnan(hyp.T_hyp) & torch.isnan(T_hyp))
+        if not (torch.equal(hyp.sample_idx, idx) and bool(same_T.all())
+                and torch.equal(hyp.scores, scores)):
+            raise AssertionError(
+                f"pnp_hypotheses differs from plain (seed {seed}): minimal sets "
+                f"{int((hyp.sample_idx != idx).any(dim=1).sum())}, poses "
+                f"{int((~same_T).any(dim=(1, 2)).sum())}, scores "
+                f"{int((hyp.scores != scores).sum())} of {H} hypotheses")
+        gap = float((got[0] - want.T_c_w).abs().max())
+        if not gap <= PNP_POSE_ATOL:
+            raise AssertionError(f"pnp_refine: pose {gap} from plain (seed {seed}) > "
+                                 f"{PNP_POSE_ATOL}")
+        gaps.append(gap)
+        scenes.append((args, spread, half, rot_w, hyp))
+    args, spread, half, rot_w, hyp = scenes[0]
+    rows = {}
+    for name, work, kernel, plain in (
+            ("pnp_hypotheses", measure.pnp_hypotheses_work(H, N, pc.sample_size,
+                                                           pc.gn_iters_hypothesis),
+             lambda: pnp_kernel.pnp_hypotheses(*args, half, rot_w, spread, **hkw),
+             lambda: pnp.hypotheses_plain(*args, prior_spread=spread, **hkw)),
+            ("pnp_refine", measure.pnp_refine_work(H, N, pc.gn_iters_refine),
+             lambda: pnp_kernel.pnp_refine(*args[:5], hyp.T_hyp, hyp.scores, **rkw), None)):
+        bms, by = measure.bound(*work)
+        rows[name] = dict(shape=[H, N], max_abs_err=0.0 if name == "pnp_hypotheses" else max(gaps),
+                          ms=ms(kernel), plain_ms=None if plain is None else ms(plain, reps=5),
+                          bound_ms=bms, bound_by=by, library_ms=None)
+    rows["pnp_refine"]["plain_both_ms"] = ms(
+        lambda: pnp.solve_pnp_ransac_plain(*args, prior_spread=spread, **kw), reps=5)
+    a, b = rows["pnp_hypotheses"], rows["pnp_refine"]
+    log(f"pnp: H={H} N={N}, {len(PNP_SCENES)} scenes: minimal sets, hypotheses and scores "
+        f"bit-equal to plain, final pose within {max(gaps):.3g} (atol {PNP_POSE_ATOL}); "
+        f"pnp_hypotheses {a['ms']:.4f} ms (bound {a['bound_ms']:.6f}, plain stage "
+        f"{a['plain_ms']:.3f}), pnp_refine {b['ms']:.4f} ms (bound {b['bound_ms']:.6f}); the "
+        f"plain path whole {b['plain_both_ms']:.3f} ms")
+    return rows
 
 
 def check_extract_composition(cfg, frames, dev):
@@ -432,6 +505,8 @@ def check_launches(launches, label):
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels not launched: {missing}")
+    if launches["pnp_hypotheses"] != launches["pnp_refine"]:
+        raise AssertionError(f"{label}: PnP's kernels launched unequally: {launches}")
 
 
 def run_slice(frames, world, cfg):
@@ -1503,7 +1578,11 @@ def main() -> int:
            "gather_patches": ("stereo_visual_slam_tpu_torch/csrc/patch_gather.cu",
                               "stereo_visual_slam_tpu/ops/pallas/patch_kernel.py:82"),
            "zncc_sweep": ("stereo_visual_slam_tpu_torch/csrc/zncc_sweep.cu",
-                          "stereo_visual_slam_tpu/ops/pallas/stereo_kernel.py:126")}
+                          "stereo_visual_slam_tpu/ops/pallas/stereo_kernel.py:126"),
+           "pnp_hypotheses": ("stereo_visual_slam_tpu_torch/csrc/pnp_ransac.cu",
+                              "none: XLA ops of stereo_visual_slam_tpu/tracking/pnp.py"),
+           "pnp_refine": ("stereo_visual_slam_tpu_torch/csrc/pnp_ransac.cu",
+                          "none: XLA ops of stereo_visual_slam_tpu/tracking/pnp.py")}
     rows = []
     for name, (source, replaces) in src.items():
         m = measured[name]

@@ -33,6 +33,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+# flags of one source: pnp_ransac.cu rounds every product and sum alone, as
+# the tensor ops of the plain path it replaces round them, and writes fmaf
+# where those ops fuse
+SOURCE_FLAGS = {"pnp_ransac.cu": ["-fmad=false"]}
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _c_i64s, _c_ints = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int)
@@ -46,6 +50,9 @@ SIGNATURES = {
                                   _c_ptr],
     "svs_zncc_sweep": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
                        _c_int, _c_int, _c_int, _c_ptr],
+    "svs_pnp_hypotheses": [_c_ptr] * 10 + [_c_int] * 4 + [_c_float, _c_ptr, _c_ptr, _c_ptr,
+                                                         _c_ptr],
+    "svs_pnp_refine": [_c_ptr] * 7 + [_c_int] * 3 + [_c_float, _c_float] + [_c_ptr] * 5,
 }
 
 _libs: Dict[Path, ctypes.CDLL] = {}
@@ -72,6 +79,7 @@ def library_path(src_dir: Path = CSRC) -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / "libsvs_kernels.so"
 
 
@@ -91,7 +99,8 @@ def build(src_dir: Path = CSRC) -> Path:
         jobs = []
         for src in cus:
             obj = os.path.join(tmp, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(src_dir), "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, []), "-I", str(src_dir),
+                   "-c", "-o", obj, str(src)]
             jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.STDOUT, text=True)))
         logs = [(obj, proc.communicate()[0], proc.returncode) for obj, proc in jobs]
@@ -134,13 +143,18 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    """Raise unless t is a contiguous CUDA tensor of dtype and rank ndim."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+def require_type(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless t has dtype and rank ndim, on any device."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected rank {ndim}, got shape {tuple(t.shape)}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless t is a contiguous CUDA tensor of dtype and rank ndim."""
+    require_type(t, name, dtype, ndim)
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

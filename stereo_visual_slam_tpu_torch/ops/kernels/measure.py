@@ -29,8 +29,8 @@ kernels are also checked against their plain versions and the parent's
 
 The module also holds what `chip_smoke.py` needs for the same shapes: the
 inputs and each kernel's bound (the least time the card could take), from
-each kernel's work (`fast_work`, `gather_work`, `zncc_work`: bytes and
-operations), which the cost model (utils/roofline.py) counts for a call of
+each kernel's work (`fast_work`, `gather_work`, `zncc_work`,
+`pnp_work`: bytes and operations), which the cost model (utils/roofline.py) counts for a call of
 the kernel's wrapper too. The gather's bound counts only the image pixels
 under its windows (`covered_pixels`); its cost-model unit counts whole
 level images.
@@ -64,6 +64,13 @@ FAST_OPS_ALL, FAST_OPS_CANDIDATE = 20, 177
 # flops per window pixel of the ZNCC sweep: the difference from the window
 # mean, its square sum and its product with the patch (2 each)
 ZNCC_FLOPS = 5
+# operations of PnP-RANSAC's kernels (csrc/pnp_ransac.cu): a point of a
+# Gauss-Newton step (the transform 18, the projection 7, the residual and
+# depth test 3, the 2x6 Jacobian 30, its 21 JtJ and 6 Jtr sums 108), 20
+# more for its Huber weight; a step's 6x6 solve by 3x3 blocks, the twist's
+# exp and the compose; a point scored against a pose (the transform, the
+# projection, the residual's norm, three tests)
+PNP_GN_OPS, PNP_HUBER_OPS, PNP_STEP_OPS, PNP_SCORE_OPS = 166, 20, 500, 34
 
 
 def card_line() -> str:
@@ -138,6 +145,33 @@ def zncc_work(img: torch.Tensor, n: int, patch: int, D: int) -> tuple:
     return 8.0 * img.numel() + 8.0 * n + 4.0 * n * D, float(ZNCC_FLOPS * n * D * patch * patch)
 
 
+def pnp_hypotheses_work(H: int, N: int, S: int, iters: int) -> tuple:
+    """`pnp_hypotheses_kernel`'s: the Gumbel rows, the points (21 bytes
+    each), each hypothesis's draws and outputs; the minimal sets, H chains
+    of `iters` steps on S points, the H x N score."""
+    nbytes = 4.0 * H * N + 21.0 * N + H * (28.0 + 8 * S + 68) + 128
+    ops = H * N * (S + 1) + H * iters * (S * PNP_GN_OPS + PNP_STEP_OPS) + H * N * PNP_SCORE_OPS
+    return nbytes, float(ops)
+
+
+def pnp_refine_work(H: int, N: int, iters: int) -> tuple:
+    """`pnp_refine_kernel`'s: the points and the mask, the hypotheses and
+    scores, the result; the argmax, the winner's inlier set and the final
+    one, and `iters` Huber-weighted steps over N."""
+    nbytes = 22.0 * N + 68.0 * H + 172
+    ops = H + 2 * N * PNP_SCORE_OPS + iters * (N * (PNP_GN_OPS + PNP_HUBER_OPS) + PNP_STEP_OPS)
+    return nbytes, float(ops)
+
+
+def pnp_work(pts_w, uv, valid, K, T_init, gumbel, twist_noise, *, sample_size=4,
+             gn_iters_hypothesis=10, gn_iters_refine=10, **_) -> tuple:
+    """Both PnP kernels' work for one `tracking/pnp.solve_pnp_ransac` call."""
+    H, N = gumbel.shape
+    a = pnp_hypotheses_work(H, N, sample_size, gn_iters_hypothesis)
+    b = pnp_refine_work(H, N, gn_iters_refine)
+    return a[0] + b[0], a[1] + b[1]
+
+
 def fast_bound(img: torch.Tensor, threshold: float) -> tuple:
     return bound(*fast_work(img, threshold))
 
@@ -171,6 +205,36 @@ def production_frames(n_frames: int = FRAMES):
     cfg = Config()
     world = synthetic.make_world(cfg, n_frames=n_frames, n_points=8000, seed=0)
     return cfg, list(synthetic.frames(world))
+
+
+def pnp_inputs(cfg, seed: int, dev) -> tuple:
+    """PnP's arguments at the production shapes: points ahead of a driving
+    camera, their pixels under a known pose with 0.5 px noise, a third of
+    them outliers, a tenth invalid, the draws from `seed`."""
+    from stereo_visual_slam_tpu_torch.geom import se3
+    from stereo_visual_slam_tpu_torch.models import vslam
+
+    n, H = cfg.frontend.max_raw_keypoints, cfg.pnp.n_hypotheses
+    rng = np.random.default_rng(seed)
+    cam = cfg.camera
+    pts = np.stack([rng.uniform(-20, 20, n), rng.uniform(-5, 5, n),
+                    rng.uniform(8, 60, n)], -1).astype(np.float32)
+    T_gt = se3.exp(torch.tensor([0.3, -0.1, 0.8, 0.01, 0.03, -0.005]))
+    Xc = pts @ T_gt[:3, :3].numpy().T + T_gt[:3, 3].numpy()
+    uv = np.stack([cam.fx * Xc[:, 0] / Xc[:, 2] + cam.cx,
+                   cam.fy * Xc[:, 1] / Xc[:, 2] + cam.cy], -1) + rng.normal(0, 0.5, (n, 2))
+    bad = n // 3
+    uv[:bad] += rng.uniform(30, 200, (bad, 2)) * rng.choice([-1, 1], (bad, 2))
+    valid = rng.random(n) > 0.1
+    gumbel = -np.log(-np.log(rng.uniform(1e-6, 1.0, (H, n))))
+    twist = rng.normal(0, 1, (H, 6))
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    T_init = se3.exp(torch.tensor([0.25, -0.05, 0.7, 0.0, 0.02, 0.0])).to(dev)
+    return (f32(pts), f32(uv), torch.as_tensor(valid, device=dev), vslam.camera_matrix(cfg, dev),
+            T_init, f32(gumbel), f32(twist))
 
 
 def kernel_inputs(cfg, frames, dev) -> dict:

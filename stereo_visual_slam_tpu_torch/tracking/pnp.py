@@ -8,9 +8,13 @@ package's own stream (`utils/prng.pnp_draws`: split(key) -> gumbel,
 normal, as tracking/pnp.py there), so both packages fit the same
 hypotheses.
 
-On the card the per-frame tracker calls `graphed(...)`: the same function
-captured once as a CUDA graph and replayed, one launch from the host where
-the eager call makes some 5,700 (utils/cuda_graph).
+`solve_pnp_ransac` takes its path from its input's device: CUDA tensors
+run two hand-written kernels (ops/kernels/pnp_kernel, csrc/pnp_ransac.cu);
+CPU tensors run `solve_pnp_ransac_plain`, some 5,700 tensor ops, the CPU
+tests' oracle. The cost model counts a call on either as one unit of the
+kernels' work (`measure.pnp_work`). On the card the per-frame tracker
+calls `graphed(...)`: the same function captured once as a CUDA graph (of
+the two kernels) and replayed (utils/cuda_graph).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from stereo_visual_slam_tpu_torch.ba import residuals as res
 from stereo_visual_slam_tpu_torch.geom import se3
 from stereo_visual_slam_tpu_torch.geom.linalg import solve6
 from stereo_visual_slam_tpu_torch.ops.fast import top_k_stable
-from stereo_visual_slam_tpu_torch.utils import cuda_graph
+from stereo_visual_slam_tpu_torch.ops.kernels import measure, pnp_kernel
+from stereo_visual_slam_tpu_torch.utils import cuda_graph, roofline, trace
 
 
 class PnPResult(NamedTuple):
@@ -63,6 +68,7 @@ def _start_weights(H: int, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
     return _START_WEIGHTS[key]
 
 
+@roofline.kernel_unit("pnp_ransac", measure.pnp_work)
 def solve_pnp_ransac(
     pts_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     K: torch.Tensor, T_init: torch.Tensor,
@@ -73,33 +79,37 @@ def solve_pnp_ransac(
 ) -> PnPResult:
     """Estimate T_c_w from world points (N, 3) and pixels (N, 2) with
     outliers; H = gumbel.shape[0] hypotheses start from T_init (half of
-    them perturbed by twist_noise scaled up to prior_spread)."""
-    H = gumbel.shape[0]
-    dtype, dev = pts_w.dtype, pts_w.device
+    them perturbed by twist_noise scaled up to prior_spread). CUDA inputs
+    run the two kernels (and count `track.pnp_kernel`), CPU inputs
+    `solve_pnp_ransac_plain`."""
+    if not pts_w.is_cuda:
+        return solve_pnp_ransac_plain(
+            pts_w, uv, valid, K, T_init, gumbel, twist_noise, sample_size=sample_size,
+            inlier_px=inlier_px, gn_iters_hypothesis=gn_iters_hypothesis,
+            gn_iters_refine=gn_iters_refine, huber_px=huber_px, prior_spread=prior_spread)
+    trace.add("track.pnp_kernel", 1)
+    half, rot_w = _start_weights(gumbel.shape[0], pts_w.dtype, pts_w.device)
+    c = [t.contiguous() for t in (pts_w, uv, valid, K, T_init, gumbel, twist_noise)]
+    return PnPResult(*pnp_kernel.pnp_ransac(
+        *c, half, rot_w, prior_spread, sample_size=sample_size, inlier_px=inlier_px,
+        gn_iters_hypothesis=gn_iters_hypothesis, gn_iters_refine=gn_iters_refine,
+        huber_px=huber_px))
 
-    # --- H minimal sets over valid entries (Gumbel top-k, lowest index
-    #     first among ties, -inf ties included)
-    g = torch.where(valid[None, :], gumbel, float("-inf"))
-    _, sample_idx = top_k_stable(g, sample_size)             # (H, S)
 
-    # --- hypothesis starts: half the exact prior, half perturbed
-    half, rot_w = _start_weights(H, dtype, dev)
-    scale = half * prior_spread
-    twists = twist_noise * scale[:, None] * rot_w
-    T_starts = se3.compose(se3.exp(twists), T_init)          # (H, 4, 4)
-
-    p = pts_w[sample_idx]                                    # (H, S, 3)
-    u = uv[sample_idx]                                       # (H, S, 2)
-    w = torch.ones((H, sample_size), dtype=dtype, device=dev)
-    T_hyp = T_starts
-    for _ in range(gn_iters_hypothesis):
-        T_hyp = _gn_step(T_hyp, p, u, w, K, 1e-4)
-
-    # --- score every hypothesis against every point
-    r, _, depth_ok = res.reprojection_residual_jac(T_hyp[:, None], pts_w[None], uv[None], K)
-    err = torch.linalg.vector_norm(r, dim=-1)
-    inlier_sets = valid[None] & depth_ok.bool() & (err < inlier_px)  # (H, N)
-    scores = inlier_sets.sum(dim=1, dtype=torch.int32)
+def solve_pnp_ransac_plain(
+    pts_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
+    K: torch.Tensor, T_init: torch.Tensor,
+    gumbel: torch.Tensor, twist_noise: torch.Tensor, *,
+    sample_size: int = 4, inlier_px: float = 4.0,
+    gn_iters_hypothesis: int = 10, gn_iters_refine: int = 10,
+    huber_px: float = 4.0, prior_spread=0.0,
+) -> PnPResult:
+    """The plain version of `solve_pnp_ransac`, in tensor ops on any
+    device."""
+    dtype = pts_w.dtype
+    _, T_hyp, scores, inlier_sets = hypotheses_plain(
+        pts_w, uv, valid, K, T_init, gumbel, twist_noise, sample_size=sample_size,
+        inlier_px=inlier_px, gn_iters_hypothesis=gn_iters_hypothesis, prior_spread=prior_spread)
     # the winner by a one-element index: indexing by the 0-dim argmax would
     # read it on the host
     best = torch.argmax(scores).reshape(1)
@@ -128,6 +138,45 @@ def solve_pnp_ransac(
         n_inliers=inlier_mask.sum(dtype=torch.int32),
         best_score=best_score,
     )
+
+
+def hypotheses_plain(
+    pts_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
+    K: torch.Tensor, T_init: torch.Tensor,
+    gumbel: torch.Tensor, twist_noise: torch.Tensor, *,
+    sample_size: int = 4, inlier_px: float = 4.0,
+    gn_iters_hypothesis: int = 10, prior_spread=0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The hypothesis stage of `solve_pnp_ransac_plain` (the first kernel's
+    twin): (sample_idx (H, S) int64, T_hyp (H, 4, 4), scores (H,) int32,
+    inlier_sets (H, N) bool)."""
+    H = gumbel.shape[0]
+    dtype, dev = pts_w.dtype, pts_w.device
+
+    # --- H minimal sets over valid entries (Gumbel top-k, lowest index
+    #     first among ties, -inf ties included)
+    g = torch.where(valid[None, :], gumbel, float("-inf"))
+    _, sample_idx = top_k_stable(g, sample_size)             # (H, S)
+
+    # --- hypothesis starts: half the exact prior, half perturbed
+    half, rot_w = _start_weights(H, dtype, dev)
+    scale = half * prior_spread
+    twists = twist_noise * scale[:, None] * rot_w
+    T_starts = se3.compose(se3.exp(twists), T_init)          # (H, 4, 4)
+
+    p = pts_w[sample_idx]                                    # (H, S, 3)
+    u = uv[sample_idx]                                       # (H, S, 2)
+    w = torch.ones((H, sample_size), dtype=dtype, device=dev)
+    T_hyp = T_starts
+    for _ in range(gn_iters_hypothesis):
+        T_hyp = _gn_step(T_hyp, p, u, w, K, 1e-4)
+
+    # --- score every hypothesis against every point
+    r, _, depth_ok = res.reprojection_residual_jac(T_hyp[:, None], pts_w[None], uv[None], K)
+    err = torch.linalg.vector_norm(r, dim=-1)
+    inlier_sets = valid[None] & depth_ok.bool() & (err < inlier_px)  # (H, N)
+    scores = inlier_sets.sum(dim=1, dtype=torch.int32)
+    return sample_idx, T_hyp, scores, inlier_sets
 
 
 def graphed(**settings) -> cuda_graph.Graphed:

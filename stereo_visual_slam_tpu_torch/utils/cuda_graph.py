@@ -19,6 +19,7 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
+from stereo_visual_slam_tpu_torch.ops import kernels
 from stereo_visual_slam_tpu_torch.utils import trace
 
 WARMUP = 3
@@ -26,13 +27,15 @@ WARMUP = 3
 
 class _Capture(NamedTuple):
     """One capture: its static inputs (the arguments' leaves, a number as
-    a 0-dim tensor), the graph, the outputs each replay writes, and the
-    tracer's counters the captured run adds (`trace.collect`)."""
+    a 0-dim tensor), the graph, the outputs each replay writes, the
+    tracer's counters the captured run adds (`trace.collect`) and the
+    hand kernels it launches (`kernels.collect_launches`)."""
 
     inputs: Tuple[torch.Tensor, ...]
     graph: torch.cuda.CUDAGraph
     outputs: NamedTuple
     counts: trace.Counters
+    launches: dict
 
 
 class Graphed:
@@ -48,8 +51,10 @@ class Graphed:
     overwrites them. CPU inputs, and any call under a TorchDispatchMode
     (the cost model's counter, which a replay would bypass), run `fn`.
 
-    The captured run counts into the graph's outputs (`trace.collect`) and
-    each replay hands the counts on, so counters read as they do eager.
+    The captured run counts into the graph's outputs (`trace.collect`,
+    `kernels.collect_launches`) and each replay hands the counts on, so
+    the tracer's counters and the hand kernels' launch counters read as
+    they do eager.
     `captures` and `replays` count graphs captured and replayed; the tracer
     counts `<name>_graph` a replay and `<name>_eager` an eager call."""
 
@@ -81,6 +86,7 @@ class Graphed:
         self.replays += 1
         trace.add(self.name + "_graph", 1)
         trace.add_counts(g.counts)
+        kernels.add_launches(g.launches)
         return type(g.outputs)(*[t.clone() for t in g.outputs])
 
     def _capture(self, leaves, spec, first) -> _Capture:
@@ -90,8 +96,9 @@ class Graphed:
         args, kwargs = pytree.tree_unflatten(list(static), spec)
 
         def body():
-            with trace.collect() as counts:
-                return self.fn(*args, **kwargs), counts
+            with trace.collect() as counts, kernels.collect_launches() as launches:
+                out = self.fn(*args, **kwargs)
+            return out, counts, launches
 
         stream = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -102,9 +109,9 @@ class Graphed:
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(dev), torch.cuda.graph(graph, stream=side):
-            outputs, counts = body()
+            outputs, counts, launches = body()
         self.captures += 1
-        return _Capture(static, graph, outputs, counts)
+        return _Capture(static, graph, outputs, counts, launches)
 
 
 _SHARED: Dict[Hashable, Graphed] = {}

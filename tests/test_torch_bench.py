@@ -139,7 +139,8 @@ def test_run_bench_small(capsys):
     assert set(out["profiles"]) == {"default", "hard", "highway"}
     for name, p in out["profiles"].items():
         assert p["verdict"] == bench.gate_verdict(name, p)
-        assert p["launches"] == {"fast_nms": 0, "gather_patches": 0, "zncc_sweep": 0}
+        assert p["launches"] == {"fast_nms": 0, "gather_patches": 0, "zncc_sweep": 0,
+                                 "pnp_hypotheses": 0, "pnp_refine": 0}
     # default: the staged run, the streaming and the rolling pass, 8 frames each
     assert out["profiles"]["default"]["frames"] == 3 * 8
     assert out["profiles"]["hard"]["frames"] == 8

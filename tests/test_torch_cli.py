@@ -166,7 +166,8 @@ def test_run_synthetic_example(params, tmp_path, monkeypatch, capsys):
     assert "frame    0 init" in out and "frame    1 tracked" in out
     for what in ("tracked 6/6 frames", "ATE RMSE: ", "KITTI-style: trans ",
                  "mean keyframe time: ",
-                 'kernel launches: {"fast_nms": 0, "gather_patches": 0, "zncc_sweep": 0}'):
+                 'kernel launches: {"fast_nms": 0, "gather_patches": 0, "zncc_sweep": 0, '
+                 '"pnp_hypotheses": 0, "pnp_refine": 0}'):
         assert what in out, what
     rows = traj_mod.read_trajectory(str(tmp_path / "synthetic_traj.txt"))
     assert 0 in rows and len(rows) >= 4

@@ -187,7 +187,7 @@ def test_one_gather_launch_per_batch_extract(dev, batch):
     got = batch_extract(images)
     torch.cuda.synchronize()
     assert launch_counts() == {"fast_nms": cfg.frontend.n_levels, "gather_patches": 1,
-                               "zncc_sweep": 1}
+                               "zncc_sweep": 1, "pnp_hypotheses": 0, "pnp_refine": 0}
     left = images[:, 0].float()
     per_level = []
     for i in range(len(st.levels)):

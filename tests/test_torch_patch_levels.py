@@ -253,4 +253,5 @@ def test_both_gather_launchers_count_as_gather_patches(monkeypatch):
     monkeypatch.setattr(patch_kernel.gather_patches_levels_cuda, "launches", 2)
     assert kernels.launch_counts()["gather_patches"] == 5
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"fast_nms": 0, "gather_patches": 0, "zncc_sweep": 0}
+    assert kernels.launch_counts() == {"fast_nms": 0, "gather_patches": 0, "zncc_sweep": 0,
+                                       "pnp_hypotheses": 0, "pnp_refine": 0}

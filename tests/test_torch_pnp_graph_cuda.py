@@ -4,9 +4,11 @@ matches, H=128 hypotheses):
 
 - the eager `solve_pnp_ransac` waits on the host nowhere (torch's sync
   debug mode set to raise), so a graph can capture it;
-- each replay equals the eager call bit for bit, raises nothing under the
-  sync debug mode, and leaves the results of the call before it as they
-  were (they are clones, not the graph's output buffers);
+- each replay runs the two hand-written kernels (`track.pnp_kernel` and
+  each kernel's launch counter count one a replay), equals the eager call bit for bit and the plain
+  path within 1e-5, raises nothing under the sync debug mode, and leaves
+  the results of the call before it as they were (they are clones, not
+  the graph's output buffers);
 - both drivers, fed 24 frames of the production world, give the same
   records, poses and final state with the graph as with the eager
   function (`chunked.differences` empty);
@@ -29,7 +31,7 @@ import pytest
 import torch
 
 from stereo_visual_slam_tpu_torch.geom import se3
-from stereo_visual_slam_tpu_torch.models import vslam
+from stereo_visual_slam_tpu_torch.ops import kernels
 from stereo_visual_slam_tpu_torch.pipeline import chunked
 from stereo_visual_slam_tpu_torch.pipeline.vo import VisualOdometry
 from stereo_visual_slam_tpu_torch.tracking import pnp
@@ -60,30 +62,10 @@ def settings(cfg) -> dict:
 
 
 def inputs(cfg, seed, dev):
-    """PnP's arguments at the production shapes: points ahead of a driving
-    camera, their pixels under a known pose with 0.5 px noise, a third of
-    them outliers, a tenth invalid, the draws from `seed`."""
-    n, H = cfg.frontend.max_raw_keypoints, cfg.pnp.n_hypotheses
-    rng = np.random.default_rng(seed)
-    cam = cfg.camera
-    pts = np.stack([rng.uniform(-20, 20, n), rng.uniform(-5, 5, n),
-                    rng.uniform(8, 60, n)], -1).astype(np.float32)
-    T_gt = se3.exp(torch.tensor([0.3, -0.1, 0.8, 0.01, 0.03, -0.005]))
-    Xc = pts @ T_gt[:3, :3].numpy().T + T_gt[:3, 3].numpy()
-    uv = np.stack([cam.fx * Xc[:, 0] / Xc[:, 2] + cam.cx,
-                   cam.fy * Xc[:, 1] / Xc[:, 2] + cam.cy], -1) + rng.normal(0, 0.5, (n, 2))
-    bad = n // 3
-    uv[:bad] += rng.uniform(30, 200, (bad, 2)) * rng.choice([-1, 1], (bad, 2))
-    valid = rng.random(n) > 0.1
-    gumbel = -np.log(-np.log(rng.uniform(1e-6, 1.0, (H, n))))
-    twist = rng.normal(0, 1, (H, 6))
+    """PnP's arguments at the production shapes (`measure.pnp_inputs`)."""
+    from stereo_visual_slam_tpu_torch.ops.kernels import measure
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-    T_init = se3.exp(torch.tensor([0.25, -0.05, 0.7, 0.0, 0.02, 0.0])).to(dev)
-    return (f32(pts), f32(uv), torch.as_tensor(valid, device=dev), vslam.camera_matrix(cfg, dev),
-            T_init, f32(gumbel), f32(twist))
+    return measure.pnp_inputs(cfg, seed, dev)
 
 
 @contextlib.contextmanager
@@ -118,14 +100,28 @@ def test_replays_equal_eager_and_keep_their_outputs(production):
                                 "track.pnp")
     calls = [(inputs(cfg, seed, dev), spread)
              for seed, spread in ((1, torch.tensor(0.3, device=dev)), (2, 0.6), (3, 0.0))]
-    got = [solver(*calls[0][0], prior_spread=calls[0][1])]
-    assert solver.captures == 1
-    with sync_raises():
-        got += [solver(*args, prior_spread=spread) for args, spread in calls[1:]]
+    kernels.reset_launch_counts()
+    trace.disable()
+    trace.drain()
+    trace.enable()
+    try:
+        got = [solver(*calls[0][0], prior_spread=calls[0][1])]
+        assert solver.captures == 1
+        with sync_raises():
+            got += [solver(*args, prior_spread=spread) for args, spread in calls[1:]]
+    finally:
+        trace.disable()
+        _, totals = trace.drain()
     assert (solver.captures, solver.replays) == (1, 3)
+    # the graph holds the kernels: each replay hands on the capture's count
+    assert totals["track.pnp_kernel"] == totals["track.pnp_graph"] == 3
+    launched = kernels.launch_counts()
+    assert launched["pnp_hypotheses"] == launched["pnp_refine"] == 3
     for (args, spread), res in zip(calls, got):
         want = pnp.solve_pnp_ransac(*args, prior_spread=spread, **settings(cfg))
         assert equal(res, want)
+        plain = pnp.solve_pnp_ransac_plain(*args, prior_spread=spread, **settings(cfg))
+        assert float((res.T_c_w - plain.T_c_w).abs().max()) <= 1e-5
         assert int(res.n_inliers) > 800
     # the replays differ, so a result that aliased the graph's buffers
     # would have read the last one

@@ -26,8 +26,11 @@ from stereo_visual_slam_tpu_torch.ops.kernels import (  # noqa: E402
 from stereo_visual_slam_tpu_torch.profiling import (  # noqa: E402
     extract_cost, production, roofline_report,
 )
+from stereo_visual_slam_tpu_torch.tracking import pnp  # noqa: E402
 from stereo_visual_slam_tpu_torch.utils import roofline  # noqa: E402
 from stereo_visual_slam_tpu_torch.utils.config import small_config  # noqa: E402
+
+from test_torch_pnp_graph import SETTINGS, scene  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -111,6 +114,8 @@ def _kernel_calls():
     right = torch.from_numpy(rng.uniform(0, 255, (96, 128)).astype(np.float32))
     yx = torch.from_numpy(np.stack([rng.integers(0, 96, 50), rng.integers(0, 128, 50)],
                                    -1).astype(np.int32))
+    s = scene(seed=1, outliers=60, spread=0.3)
+    pnp_work = measure.pnp_work(*s["args"], **SETTINGS)
     return {
         "fast_nms": (lambda: fast_kernel.fast_nms_score_map(img, 20.0),
                      measure.fast_work(img, 20.0), measure.fast_bound(img, 20.0)),
@@ -119,10 +124,13 @@ def _kernel_calls():
         "zncc_sweep": (lambda: stereo_kernel.zncc_sweep(img, right, yx, patch=11,
                                                         max_disparity=32),
                        measure.zncc_work(img, 50, 11, 32), measure.zncc_bound(img, 50, 11, 32)),
+        "pnp_ransac": (lambda: pnp.solve_pnp_ransac(*s["args"], prior_spread=s["prior_spread"],
+                                                    **SETTINGS).T_c_w,
+                       pnp_work, measure.bound(*pnp_work)),
     }
 
 
-@pytest.mark.parametrize("kernel", ["fast_nms", "gather_patches", "zncc_sweep"])
+@pytest.mark.parametrize("kernel", ["fast_nms", "gather_patches", "zncc_sweep", "pnp_ransac"])
 def test_kernel_counts_as_one_unit_of_its_bound_work(kernel):
     call, (nbytes, ops), bound = _kernel_calls()[kernel]
     with roofline.Counter() as counter:
